@@ -1,0 +1,193 @@
+"""Command-line interface.
+
+Counterpart of ``rustyhgi_tpu/cli.py`` (reference: src/options.rs:13-65,
+src/main.rs:41-128): ``encode``/``decode``/``test`` with the same flags,
+defaults (level=4, quantizator=medium, case-insensitive) and printout,
+plus ``--engine auto|cuda|torch`` (the codec's backend; the engines are
+bit-identical) and ``--device`` (default ``cuda``).
+
+What the port does not have yet exits with 1 and names the ROADMAP
+item that ports it: ``--format thgi``, ``--fast``, ``--color``,
+``--preview``, and the ``encode-tiled``, ``decode-tiled`` and ``bench``
+commands.
+
+Usage::
+
+    python -m rustyhgi_tpu_torch encode -i in.png -o out.hgi -l 4 -q medium
+    python -m rustyhgi_tpu_torch decode -i out.hgi -o roundtrip.png
+    python -m rustyhgi_tpu_torch test img.png -l 4 -q lossless --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import numpy as np
+
+from .models.codec import HGICodec
+from .ops.quantizers import QuantizationLevel
+from .utils.container import Archive, read_archive, write_archive
+from .utils.imageio import load_luma, save_gray
+
+# Flags and commands of the JAX CLI that this port does not have yet, with
+# the ROADMAP Queue 1 item that ports each.
+_UNPORTED_FLAGS = (
+    ("fast", "--fast", 8),
+    ("color", "--color", 10),
+    ("preview", "--preview", 9),
+)
+_UNPORTED_COMMANDS = {"encode-tiled": 11, "decode-tiled": 11, "bench": 12}
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
+    )
+
+
+def _add_device_options(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--engine",
+        choices=("auto", "cuda", "torch"),
+        default="auto",
+        help="auto = CUDA kernels on a CUDA device, plain PyTorch on the "
+        "CPU; cuda = the kernels only; torch = the plain version "
+        "(all bit-identical)",
+    )
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def _add_encoding_options(p: argparse.ArgumentParser) -> None:
+    # Defaults per options.rs:55-64.
+    p.add_argument("-l", "--level", type=int, default=4, help="pyramid depth")
+    p.add_argument(
+        "-q",
+        "--quantizator",
+        type=str,
+        default="medium",
+        help="lossless|low|medium|high (case-insensitive)",
+    )
+    _add_device_options(p)
+    p.add_argument(
+        "--format",
+        choices=("hgi", "thgi"),
+        default="hgi",
+        help="container format (hgi = reference byte-compatible)",
+    )
+    p.add_argument("--fast", action="store_true", help="not ported yet")
+    p.add_argument(
+        "--predictor",
+        choices=("crossed", "left_top"),
+        default="crossed",
+        help="interpolation predictor (tagged in the archive; decode "
+        "honors the tag)",
+    )
+    p.add_argument("--color", action="store_true", help="not ported yet")
+
+
+def _refuse_unported(args) -> None:
+    for attr, flag, item in _UNPORTED_FLAGS:
+        if getattr(args, attr, None) not in (None, False):
+            raise _not_ported(flag, item)
+    if getattr(args, "format", "hgi") != "hgi":
+        raise _not_ported("--format thgi", 7)
+
+
+def _codec(args, quant=QuantizationLevel.MEDIUM) -> HGICodec:
+    return HGICodec(
+        getattr(args, "level", 4), quant, predictor=getattr(args, "predictor", "crossed"),
+        backend=args.engine, device=args.device,
+    )
+
+
+def cmd_encode(args) -> int:
+    _refuse_unported(args)
+    quant = QuantizationLevel.parse(args.quantizator)
+    codec = _codec(args, quant)
+    archive = codec.encode(load_luma(args.input))
+    with open(args.output, "wb") as f:
+        f.write(write_archive(archive, args.format))
+    return 0
+
+
+def cmd_decode(args) -> int:
+    _refuse_unported(args)
+    with open(args.input, "rb") as f:
+        archive = read_archive(f.read())
+    # The archive's scale_level and interpolation tag drive the decode.
+    save_gray(args.output, _codec(args).decode(archive))
+    return 0
+
+
+def cmd_test(args) -> int:
+    # Mirrors main.rs:73-120: roundtrip, print metrics, write .png + archive.
+    _refuse_unported(args)
+    quant = QuantizationLevel.parse(args.quantizator)
+    image = load_luma(args.input)
+    codec = _codec(args, quant)
+    grid, _ = codec.encode_plane(image)
+    decoded = codec.decode_plane(grid).cpu().numpy()
+    archive = Archive(codec.metadata_for(*image.shape), grid.cpu().numpy())
+    blob = write_archive(archive, args.format)
+
+    diff = image.astype(np.int64) - decoded.astype(np.int64)
+    uncompressed = image.size
+    sd = int((diff**2).sum()) // uncompressed  # integer mean, main.rs:106
+    print(f"Uncompressed: {uncompressed // 1024} kb")
+    print(f"Compressed:   {len(blob) // 1024} kb")
+    print(f"Ratio:        {uncompressed / len(blob):.2f}")
+    print(f"SD:           {float(sd) ** 0.5:.2f}")
+
+    stem = os.path.splitext(os.path.basename(args.input))[0] + args.suffix
+    save_gray(stem + ".png", decoded)
+    with open(stem + "." + args.format, "wb") as f:
+        f.write(blob)
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="rustyhgi_tpu_torch",
+        description="hierarchical grid interpolation image codec on PyTorch/CUDA",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("encode", help="compress an image to an archive")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", required=True)
+    _add_encoding_options(p)
+    p.set_defaults(fn=cmd_encode)
+
+    p = sub.add_parser("decode", help="decompress an archive to an image")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", required=True)
+    _add_device_options(p)
+    p.add_argument("--preview", type=int, default=None, metavar="N",
+                   help="not ported yet")
+    p.set_defaults(fn=cmd_decode)
+
+    p = sub.add_parser("test", help="roundtrip + metrics (reference parity)")
+    p.add_argument("input")
+    p.add_argument("-s", "--suffix", default="")
+    _add_encoding_options(p)
+    p.set_defaults(fn=cmd_test)
+
+    for name in _UNPORTED_COMMANDS:
+        sub.add_parser(name, help="not ported yet")
+
+    args, extra = parser.parse_known_args(argv)
+    try:
+        if args.command in _UNPORTED_COMMANDS:
+            raise _not_ported(args.command, _UNPORTED_COMMANDS[args.command])
+        if extra:
+            parser.error(f"unrecognized arguments: {' '.join(extra)}")
+        return args.fn(args)
+    except Exception as e:  # main.rs:130-133 error surface
+        print(f"An error occured: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,210 @@
+"""HGICodec — the end-to-end codec.
+
+Counterpart of ``rustyhgi_tpu/models/codec.py`` (reference:
+src/encoder.rs:18-71, src/decoder.rs:14-46).  A codec is its
+configuration plus its quantizer's table: it has no weights.  Device
+compute runs on one of two bit-identical engines:
+
+* ``backend="auto"`` (the default) runs the CUDA kernels
+  (:mod:`..ops.cuda_codec`) on a CUDA device and the plain PyTorch version
+  (:mod:`..ops.pyramid`) on the CPU;
+* ``backend="cuda"`` demands the kernels, and raises on a CPU device;
+* ``backend="torch"`` forces the plain version on either device, as a
+  baseline.
+
+``device`` defaults to ``"cuda"``, and a machine without CUDA raises
+unless the caller asked for ``device="cpu"`` by name: no silent fallback.
+The container stage (:mod:`..utils.container`) runs on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..ops import cuda_codec, pyramid
+from ..ops.predictors import check_predictor, predictor_name_for_tag, predictor_tag
+from ..ops.quantizers import (
+    QuantizationLevel,
+    linear_error,
+    linear_table,
+    quantize_fn,
+)
+from ..utils.container import Archive, Metadata, write_archive
+from ..utils.profiling import codec_metrics
+
+__all__ = ["HGICodec", "CodecMetrics"]
+
+_BACKENDS = ("auto", "cuda", "torch")
+
+
+class CodecMetrics(dict):
+    """Metrics produced by :meth:`HGICodec.test` (mirrors main.rs:105-111)."""
+
+    def __str__(self) -> str:  # the reference's printout format
+        return (
+            f"Uncompressed: {self['uncompressed'] // 1024} kb\n"
+            f"Compressed:   {self['compressed'] // 1024} kb\n"
+            f"Ratio:        {self['ratio']:.2f}\n"
+            f"SD:           {self['sd']:.2f}"
+        )
+
+
+def _resolve_device(device: Union[str, torch.device], backend: str) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(dev)!r} requested but CUDA is not available; "
+                "pass device='cpu' to run the plain PyTorch version"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be cuda or cpu, got {str(dev)!r}")
+    if backend == "cuda" and dev.type != "cuda":
+        raise ValueError("backend='cuda' runs the CUDA kernels and needs a CUDA device")
+    return dev
+
+
+class HGICodec:
+    """Hierarchical Grid Interpolation codec on PyTorch.
+
+    ``levels`` is the pyramid depth (--level, default 4) and
+    ``quantization`` the quality preset (--quantizator, default medium),
+    as in the reference CLI (options.rs:53-65).
+    """
+
+    def __init__(
+        self,
+        levels: int = 4,
+        quantization: Union[QuantizationLevel, str] = QuantizationLevel.MEDIUM,
+        predictor: str = "crossed",
+        quantizer: str = "linear",
+        backend: str = "auto",
+        device: Union[str, torch.device] = "cuda",
+    ):
+        if isinstance(quantization, str):
+            quantization = QuantizationLevel.parse(quantization)
+        if not 0 <= levels <= 16:
+            raise ValueError(f"levels must be in [0, 16], got {levels}")
+        if backend not in _BACKENDS:
+            raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
+        self.levels = int(levels)
+        self.quantization = QuantizationLevel(quantization)
+        self.predictor = check_predictor(predictor)
+        self.quantizer = quantizer
+        self.backend = backend
+        self.device = _resolve_device(device, backend)
+        quant = quantize_fn(self.quantization, quantizer)
+        # None selects the engines' lossless path (recon is the source).
+        self._table = None if quant.identity else quant.table
+        self._engine = pyramid if backend == "torch" else cuda_codec
+
+    @classmethod
+    def from_reference(
+        cls,
+        cfg: dict,
+        table: Optional[np.ndarray] = None,
+        backend: str = "auto",
+        device: Union[str, torch.device] = "cuda",
+    ) -> "HGICodec":
+        """The port's codec computing the same bytes as a JAX ``HGICodec``.
+
+        ``cfg`` holds that codec's ``levels``, ``quantization``,
+        ``predictor`` and ``quantizer`` attributes; ``table`` is its
+        ``linear_table(quantization)`` as numpy.  The table is checked
+        against the preset, since the archive's quantization tag names it;
+        the strategy then decides the quantizer, as in the JAX codec
+        (``noop`` is the identity whatever the preset).
+        """
+        q = cfg["quantization"]
+        quantization = QuantizationLevel.parse(q) if isinstance(q, str) else QuantizationLevel(int(q))
+        if table is not None and not np.array_equal(
+            np.asarray(table).astype(np.int64), linear_table(quantization).astype(np.int64)
+        ):
+            raise ValueError(f"table is not the {quantization.name.lower()} preset's table")
+        return cls(
+            cfg["levels"], quantization, cfg["predictor"],
+            cfg.get("quantizer", "linear"), backend=backend, device=device,
+        )
+
+    # -- device compute path ------------------------------------------------
+
+    def _to_device(self, x, name: str) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            t = x.to(device=self.device, dtype=torch.uint8)
+        else:
+            arr = np.ascontiguousarray(x, dtype=np.uint8)
+            if not arr.flags.writeable:  # torch tensors are always writable
+                arr = arr.copy()
+            t = torch.from_numpy(arr).to(self.device)
+        if t.dim() not in (2, 3):
+            raise ValueError(f"{name}: expected [H, W] or [B, H, W], got {tuple(t.shape)}")
+        return t.contiguous()
+
+    def encode_plane(self, image) -> Tuple[torch.Tensor, torch.Tensor]:
+        """uint8 [H, W] (or [B, H, W]) image -> (residual grid, reconstruction).
+
+        Both are uint8 tensors on the codec's device; in lossless mode the
+        reconstruction is the input tensor itself.
+        """
+        img = self._to_device(image, "image")
+        return self._engine.encode_plane(img, self.levels, self._table, self.predictor)
+
+    def decode_plane(self, grid) -> torch.Tensor:
+        """uint8 [H, W] (or [B, H, W]) residual grid -> image on the device."""
+        g = self._to_device(grid, "grid")
+        return self._engine.decode_plane(g, self.levels, self.predictor)
+
+    # -- archive path (device compute + host container) ---------------------
+
+    def metadata_for(self, height: int, width: int) -> Metadata:
+        return Metadata(
+            quantization_level=self.quantization,
+            interpolation=predictor_tag(self.predictor),
+            width=width,
+            height=height,
+            scale_level=self.levels,
+        )
+
+    def encode(self, image) -> Archive:
+        """Encode a uint8 [H, W] plane into an :class:`Archive`."""
+        img = self._to_device(image, "image")
+        if img.dim() != 2:
+            raise ValueError(f"expected [H, W], got {tuple(img.shape)}")
+        grid, _ = self._engine.encode_plane(img, self.levels, self._table, self.predictor)
+        return Archive(self.metadata_for(*img.shape), grid.cpu().numpy())
+
+    def decode(self, archive: Archive) -> np.ndarray:
+        """Decode an :class:`Archive` back to a uint8 [H, W] plane.
+
+        Decode needs only the grid, its shape and ``scale_level``
+        (main.rs:63-71); the archive's interpolation tag picks the
+        predictor, so a left_top archive decodes with left_top.  The
+        codec's own backend and device run it.
+        """
+        pred = predictor_name_for_tag(archive.metadata.interpolation)
+        g = self._to_device(archive.grid, "grid")
+        out = self._engine.decode_plane(g, archive.metadata.scale_level, pred)
+        return out.cpu().numpy()
+
+    def test(self, image, fmt: str = "hgi") -> CodecMetrics:
+        """Roundtrip + metrics, mirroring ``hgi test`` (main.rs:73-120).
+
+        The distortion is decoded-vs-ORIGINAL; the decoded plane is the
+        encoder's reconstruction, which equals a decode bit for bit.
+        """
+        img = self._to_device(image, "image")
+        if img.dim() != 2:
+            raise ValueError(f"expected [H, W], got {tuple(img.shape)}")
+        grid, recon = self._engine.encode_plane(img, self.levels, self._table, self.predictor)
+        original = img.cpu().numpy()
+        decoded = recon.cpu().numpy()
+        blob = write_archive(Archive(self.metadata_for(*original.shape), grid.cpu().numpy()), fmt)
+        return CodecMetrics(
+            **codec_metrics(original, decoded, len(blob)),
+            error_bound=linear_error(self.quantization),
+            decoded=decoded,
+            archive_bytes=blob,
+        )

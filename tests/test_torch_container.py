@@ -1,0 +1,118 @@
+"""The port's .hgi container against the JAX package's, byte for byte."""
+
+import os
+import struct
+import zlib
+
+import numpy as np
+import pytest
+
+from rustyhgi_tpu.utils import container as jc
+from rustyhgi_tpu.ops.quantizers import QuantizationLevel as JQL
+
+from rustyhgi_tpu_torch.ops.quantizers import QuantizationLevel
+from rustyhgi_tpu_torch.utils import container as tc
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+SYNTH = os.path.join(GOLDEN, "synthetic_16x12_l3_medium")
+
+
+def _pair(grid, preset, interp, scale):
+    h, w = grid.shape
+    ours = tc.Archive(tc.Metadata(QuantizationLevel(preset), interp, w, h, scale), grid)
+    ref = jc.Archive(jc.Metadata(JQL(preset), interp, w, h, scale), grid)
+    return ours, ref
+
+
+@pytest.mark.parametrize(
+    "shape,preset,interp,scale",
+    [((0, 0), 0, 0, 4), ((1, 7), 1, 2, 3), ((37, 53), 2, 0, 16), ((64, 64), 3, 1, 0),
+     ((130, 68), 2, 2, 32)],
+)
+def test_write_hgi_bytes_equal_jax(shape, preset, interp, scale):
+    rng = np.random.default_rng([1, *shape])
+    # Mostly small residuals, like a real grid, so DEFLATE has work to do.
+    grid = np.minimum(rng.geometric(0.3, shape) - 1, 255).astype(np.uint8)
+    ours, ref = _pair(grid, preset, interp, scale)
+    blob = tc.write_hgi(ours)
+    assert blob == jc.write_hgi(ref)
+    assert tc.write_archive(ours, "hgi") == blob
+    back = jc.read_hgi(blob)
+    assert back.metadata == ref.metadata and np.array_equal(back.grid, grid)
+    mine = tc.read_archive(jc.write_hgi(ref))
+    assert np.array_equal(mine.grid, grid)
+    assert mine.metadata == ours.metadata
+
+
+def test_deflate_best_matches_jax():
+    rng = np.random.default_rng(2)
+    for payload in (b"", b"\x00" * 5000, rng.integers(0, 256, 3000, np.uint8).tobytes(),
+                    bytes(rng.integers(0, 4, 20000, np.uint8))):
+        assert tc._deflate_best(payload) == jc._deflate_best(payload)
+
+
+def test_synthetic_golden():
+    want = np.load(SYNTH + "_grid.npy")
+    with open(SYNTH + ".hgi", "rb") as f:
+        blob = f.read()
+    archive = tc.read_hgi(blob)
+    assert np.array_equal(archive.grid, want)
+    assert archive.metadata == tc.Metadata(QuantizationLevel.MEDIUM, 0, 16, 12, 3)
+    assert tc.write_hgi(archive) == blob
+
+
+@pytest.mark.parametrize("preset", ["lossless", "medium"])
+def test_lena_goldens_parse_like_jax(preset):
+    with open(os.path.join(GOLDEN, "baseline", f"lena_l4_{preset}.hgi"), "rb") as f:
+        blob = f.read()
+    ours, ref = tc.read_archive(blob), jc.read_archive(blob)
+    assert np.array_equal(ours.grid, ref.grid)
+    assert int(ours.metadata.quantization_level) == int(ref.metadata.quantization_level)
+    assert ours.metadata.interpolation == ref.metadata.interpolation
+    assert tc.write_hgi(ours) == blob
+
+
+def _header(q=0, interp=0, w=4, h=4, scale=2):
+    return struct.pack("<I", tc.HGI_MAGIC) + struct.pack("<IIIIQ", q, interp, w, h, scale)
+
+
+@pytest.mark.parametrize(
+    "data",
+    [
+        _header(w=1 << 16, h=1 << 15) + b"\x03\x00",  # beyond MAX_PLANE_PIXELS
+        _header(scale=33) + b"\x03\x00",
+        _header(w=0, h=5) + b"\x03\x00",
+        _header()[:20],  # truncated metadata
+        b"\x55\xa5",  # truncated magic
+        b"GARBAGE!" * 8,
+        _header() + zlib.compress(b"\x00" * 64)[2:-4],  # payload larger than declared
+        _header() + zlib.compress(b"\x00" * 20)[2:-4],  # truncated payload
+    ],
+    ids=["bomb", "levels", "one-sided", "short-meta", "short-magic", "magic", "long", "short"],
+)
+def test_hostile_archives_rejected_like_jax(data):
+    with pytest.raises(ValueError) as ours:
+        tc.read_archive(data)
+    with pytest.raises(ValueError) as ref:
+        jc.read_archive(data)
+    assert str(ours.value) == str(ref.value)
+
+
+def test_grid_shape_must_match_metadata():
+    meta = tc.Metadata(QuantizationLevel.LOW, 0, 5, 4, 2)
+    with pytest.raises(ValueError, match="does not match"):
+        tc.Archive(meta, np.zeros((5, 4), np.uint8))
+
+
+def test_other_containers_name_their_roadmap_item():
+    archive = tc.Archive(tc.Metadata(QuantizationLevel.LOW, 0, 2, 2, 1), np.zeros((2, 2), np.uint8))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        tc.write_archive(archive, "thgi")
+    with pytest.raises(ValueError, match="unknown container format"):
+        tc.write_archive(archive, "png")
+    with open(SYNTH + ".thgi", "rb") as f:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+            tc.read_archive(f.read())
+    for magic, item in ((tc.THGIC_MAGIC, 10), (tc.THGIT_MAGICS[1], 11)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+            tc.read_archive(struct.pack("<I", magic) + b"\x00" * 32)

@@ -1,0 +1,99 @@
+"""The CUDA kernels against their plain PyTorch version, on the card.
+
+Every test here needs a CUDA card and ``nvcc``, and skips without them.
+This file imports nothing of JAX, so that it runs on a machine that has
+no JAX; tests/conftest.py imports JAX, so run it there without conftest:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+``chip_smoke.py`` makes the same comparison at the real sizes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rustyhgi_tpu_torch import HGICodec
+from rustyhgi_tpu_torch.ops import cuda_codec, pyramid
+from rustyhgi_tpu_torch.ops.quantizers import QuantizationLevel, quantize_fn
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _image(shape, seed=0):
+    return np.random.default_rng([seed, *shape]).integers(0, 256, shape, dtype=np.uint8)
+
+
+def _table(preset, strategy="linear"):
+    q = quantize_fn(preset, strategy)
+    return None if q.identity else q.table
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (1, 7), (9, 1), (3, 64, 96), (0, 0)])
+@pytest.mark.parametrize("preset", list(QuantizationLevel), ids=lambda p: p.name.lower())
+@pytest.mark.parametrize("pred", ["crossed", "left_top"])
+def test_kernels_match_plain_version(cuda, shape, preset, pred):
+    img = torch.from_numpy(_image(shape)).to(cuda)
+    table = _table(preset)
+    for levels in (0, 1, 2, 4, 8, 16):
+        grid, recon = cuda_codec.encode_plane(img, levels, table, pred)
+        want_grid, want_recon = pyramid.encode_plane(img, levels, table, pred)
+        assert torch.equal(grid, want_grid)
+        assert torch.equal(recon, want_recon)
+        dec = cuda_codec.decode_plane(grid, levels, pred)
+        assert torch.equal(dec, pyramid.decode_plane(grid, levels, pred))
+        assert torch.equal(dec, recon)
+
+
+def test_identity_table_through_the_lossy_template(cuda):
+    img = torch.from_numpy(_image((37, 53))).to(cuda)
+    table = _table(QuantizationLevel.LOSSLESS, "lut")
+    assert table is not None
+    grid, recon = cuda_codec.encode_plane(img, 4, table)
+    assert torch.equal(grid, pyramid.encode_plane(img, 4, None)[0])
+    assert torch.equal(recon, img)
+
+
+def test_launch_counters(cuda):
+    img = torch.from_numpy(_image((16, 16))).to(cuda)
+    enc, dec = cuda_codec.encode_launches, cuda_codec.decode_launches
+    grid, _ = cuda_codec.encode_plane(img, 3)
+    cuda_codec.decode_plane(grid, 3)
+    assert (cuda_codec.encode_launches, cuda_codec.decode_launches) == (enc + 1, dec + 1)
+    # An empty plane launches nothing.
+    cuda_codec.encode_plane(torch.empty(0, 0, dtype=torch.uint8, device=cuda), 3)
+    assert cuda_codec.encode_launches == enc + 1
+
+
+@pytest.mark.parametrize(
+    "make,match",
+    [
+        (lambda d: torch.zeros(8, 8, dtype=torch.int32, device=d), "uint8"),
+        (lambda d: torch.zeros(8, dtype=torch.uint8, device=d), r"\[H, W\]"),
+        (lambda d: torch.zeros(8, 8, dtype=torch.uint8, device=d)[:, ::2], "contiguous"),
+    ],
+    ids=["dtype", "rank", "strided"],
+)
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda, make, match):
+    bad = make(cuda)
+    with pytest.raises(ValueError, match=match):
+        cuda_codec.encode_plane(bad, 2)
+    with pytest.raises(ValueError, match=match):
+        cuda_codec.decode_plane(bad, 2)
+
+
+@pytest.mark.parametrize("preset", ["lossless", "medium"])
+def test_codec_backends_agree(cuda, preset):
+    img = _image((135, 240))
+    kern = HGICodec(4, preset, backend="cuda")
+    plain = HGICodec(4, preset, backend="torch")
+    archive = kern.encode(img)
+    assert np.array_equal(archive.grid, plain.encode(img).grid)
+    assert np.array_equal(kern.decode(archive), plain.decode(archive))

@@ -1,0 +1,82 @@
+"""The PyTorch port imports without JAX and without the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+import rustyhgi_tpu_torch
+
+PKG = os.path.dirname(rustyhgi_tpu_torch.__file__)
+ROOT = os.path.dirname(PKG)
+FORBIDDEN = {"jax", "jaxlib", "rustyhgi_tpu"}
+
+MODULES = [
+    "rustyhgi_tpu_torch",
+    "rustyhgi_tpu_torch.__main__",
+    "rustyhgi_tpu_torch.cli",
+    "rustyhgi_tpu_torch.dyadic",
+    "rustyhgi_tpu_torch.models.codec",
+    "rustyhgi_tpu_torch.ops._build",
+    "rustyhgi_tpu_torch.ops.cuda_codec",
+    "rustyhgi_tpu_torch.ops.predictors",
+    "rustyhgi_tpu_torch.ops.pyramid",
+    "rustyhgi_tpu_torch.ops.quantizers",
+    "rustyhgi_tpu_torch.utils.container",
+    "rustyhgi_tpu_torch.utils.imageio",
+    "rustyhgi_tpu_torch.utils.profiling",
+]
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(dirpath, name)
+
+
+def test_imports_with_jax_blocked():
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'rustyhgi_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"for mod in {MODULES!r}:\n"
+        "    importlib.import_module(mod)\n"
+        "import chip_smoke\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize(
+    "path", sorted(_sources()), ids=lambda p: os.path.relpath(p, ROOT)
+)
+def test_source_never_imports_jax_or_the_jax_package(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif isinstance(node, ast.Name):
+            names = [node.id]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, node.lineno, name)
+
+
+def test_public_api():
+    for name in rustyhgi_tpu_torch.__all__:
+        assert hasattr(rustyhgi_tpu_torch, name), name
+    assert {"HGICodec", "read_archive", "write_archive", "QuantizationLevel"} <= set(
+        rustyhgi_tpu_torch.__all__
+    )
