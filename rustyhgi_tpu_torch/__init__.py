@@ -1,10 +1,13 @@
 """rustyhgi_tpu_torch — the Hierarchical Grid Interpolation codec on PyTorch/CUDA.
 
 The PyTorch port of ``rustyhgi_tpu`` (which stays the JAX reference it is
-held against).  The encode and decode kernels are hand-written CUDA for
-Hopper (``csrc/hgi_codec.cu``, built with ``nvcc`` at first use); on the
-CPU the plain PyTorch version of the same codec runs.  This package
-imports neither ``jax`` nor ``rustyhgi_tpu``.
+held against).  The encode and decode kernels, on the row-major grid and
+on the subband layout, are hand-written CUDA for Hopper
+(``csrc/hgi_codec.cu``, built with ``nvcc`` at first use); on the CPU the
+plain PyTorch version of the same codec runs.  The ``.thgi`` container's
+host coders are the repository's native library (``native/``), with
+pure-Python twins.  This package imports neither ``jax`` nor
+``rustyhgi_tpu``.
 
 Public API::
 
@@ -14,7 +17,14 @@ Public API::
     blob = write_archive(archive, "hgi")                # byte-compatible .hgi
     image = codec.decode(read_archive(blob))
 
-This slice ports the ``.hgi`` main path; ROADMAP.md lists what follows.
+    anchors, subbands, recon = codec.encode_subbands(image_u8_hw)  # subband layout
+    blob = write_thgi(Archive(codec.metadata_for(h, w),
+                              codec.assemble_grid(anchors, subbands, (h, w)).cpu().numpy()))
+    meta, anchors, subbands = read_thgi_subbands(blob)
+    image = codec.decode_subbands(anchors, subbands, (h, w))
+
+The ``.hgi`` main path and the ``.thgi`` subband path are ported;
+ROADMAP.md lists what follows.
 """
 
 from .models.codec import CodecMetrics, HGICodec
@@ -31,8 +41,13 @@ from .utils.container import (
     Metadata,
     read_archive,
     read_hgi,
+    read_preview,
+    read_thgi,
+    read_thgi_preview,
+    read_thgi_subbands,
     write_archive,
     write_hgi,
+    write_thgi,
 )
 
 __version__ = "0.1.0"
@@ -46,8 +61,13 @@ __all__ = [
     "Metadata",
     "read_archive",
     "read_hgi",
+    "read_preview",
+    "read_thgi",
+    "read_thgi_preview",
+    "read_thgi_subbands",
     "write_archive",
     "write_hgi",
+    "write_thgi",
     "linear_error",
     "linear_quantize",
     "linear_table",

@@ -3,18 +3,24 @@
 Counterpart of ``rustyhgi_tpu/cli.py`` (reference: src/options.rs:13-65,
 src/main.rs:41-128): ``encode``/``decode``/``test`` with the same flags,
 defaults (level=4, quantizator=medium, case-insensitive) and printout,
-plus ``--engine auto|cuda|torch`` (the codec's backend; the engines are
-bit-identical) and ``--device`` (default ``cuda``).
+plus ``--format hgi|thgi``, ``decode --preview N``, ``--engine
+auto|cuda|torch`` (the codec's backend; the engines are bit-identical)
+and ``--device`` (default ``cuda``).
+
+``decode`` of a subband-layout ``.thgi`` reads the subbands straight into
+the subband decode; any other archive goes through the grid.
+``--preview N`` decodes only the coarsest N levels (of a ``.thgi``, only
+the payload prefix they need).
 
 What the port does not have yet exits with 1 and names the ROADMAP
-item that ports it: ``--format thgi``, ``--fast``, ``--color``,
-``--preview``, and the ``encode-tiled``, ``decode-tiled`` and ``bench``
-commands.
+item that ports it: ``--fast``, ``--color``, and the ``encode-tiled``,
+``decode-tiled`` and ``bench`` commands.
 
 Usage::
 
-    python -m rustyhgi_tpu_torch encode -i in.png -o out.hgi -l 4 -q medium
-    python -m rustyhgi_tpu_torch decode -i out.hgi -o roundtrip.png
+    python -m rustyhgi_tpu_torch encode -i in.png -o out.thgi --format thgi
+    python -m rustyhgi_tpu_torch decode -i out.thgi -o roundtrip.png
+    python -m rustyhgi_tpu_torch decode -i out.thgi -o preview.png --preview 2
     python -m rustyhgi_tpu_torch test img.png -l 4 -q lossless --device cuda
 """
 
@@ -27,8 +33,17 @@ import sys
 import numpy as np
 
 from .models.codec import HGICodec
+from .ops.predictors import predictor_name_for_tag
 from .ops.quantizers import QuantizationLevel
-from .utils.container import Archive, read_archive, write_archive
+from .utils.container import (
+    THGIC_MAGIC,
+    Archive,
+    _magic,
+    read_archive,
+    read_preview,
+    read_thgi_subbands,
+    write_archive,
+)
 from .utils.imageio import load_luma, save_gray
 
 # Flags and commands of the JAX CLI that this port does not have yet, with
@@ -36,7 +51,6 @@ from .utils.imageio import load_luma, save_gray
 _UNPORTED_FLAGS = (
     ("fast", "--fast", 8),
     ("color", "--color", 10),
-    ("preview", "--preview", 9),
 )
 _UNPORTED_COMMANDS = {"encode-tiled": 11, "decode-tiled": 11, "bench": 12}
 
@@ -89,15 +103,21 @@ def _add_encoding_options(p: argparse.ArgumentParser) -> None:
 
 def _refuse_unported(args) -> None:
     for attr, flag, item in _UNPORTED_FLAGS:
-        if getattr(args, attr, None) not in (None, False):
+        if getattr(args, attr, False):
             raise _not_ported(flag, item)
-    if getattr(args, "format", "hgi") != "hgi":
-        raise _not_ported("--format thgi", 7)
 
 
 def _codec(args, quant=QuantizationLevel.MEDIUM) -> HGICodec:
     return HGICodec(
         getattr(args, "level", 4), quant, predictor=getattr(args, "predictor", "crossed"),
+        backend=args.engine, device=args.device,
+    )
+
+
+def _archive_codec(args, meta) -> HGICodec:
+    """The codec an archive's metadata names: its depth and predictor."""
+    return HGICodec(
+        meta.scale_level, predictor=predictor_name_for_tag(meta.interpolation),
         backend=args.engine, device=args.device,
     )
 
@@ -113,9 +133,27 @@ def cmd_encode(args) -> int:
 
 
 def cmd_decode(args) -> int:
-    _refuse_unported(args)
     with open(args.input, "rb") as f:
-        archive = read_archive(f.read())
+        data = f.read()
+    if _magic(data) == THGIC_MAGIC:
+        raise _not_ported(".thgic", 10)
+    if args.preview is not None:
+        # Only the coarsest N levels: a 2**(levels-N)-downsampled preview.
+        meta, anchors, subbands, upto = read_preview(data, args.preview)
+        shape = (meta.height, meta.width)
+        preview = _archive_codec(args, meta).decode_preview(anchors, subbands, shape, upto)
+        save_gray(args.output, preview.cpu().numpy())
+        return 0
+    try:
+        # A subband-layout .thgi feeds the subband decode directly.
+        meta, anchors, subbands = read_thgi_subbands(data)
+        shape = (meta.height, meta.width)
+        image = _archive_codec(args, meta).decode_subbands(anchors, subbands, shape)
+        save_gray(args.output, image.cpu().numpy())
+        return 0
+    except ValueError:
+        pass  # not a subband .thgi: the grid path below
+    archive = read_archive(data)
     # The archive's scale_level and interpolation tag drive the decode.
     save_gray(args.output, _codec(args).decode(archive))
     return 0
@@ -165,7 +203,8 @@ def main(argv=None) -> int:
     p.add_argument("-o", "--output", required=True)
     _add_device_options(p)
     p.add_argument("--preview", type=int, default=None, metavar="N",
-                   help="not ported yet")
+                   help="decode only the coarsest N levels (a 2**(levels-N)-"
+                   "downsampled preview)")
     p.set_defaults(fn=cmd_decode)
 
     p = sub.add_parser("test", help="roundtrip + metrics (reference parity)")

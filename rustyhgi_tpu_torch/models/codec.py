@@ -15,6 +15,13 @@ compute runs on one of two bit-identical engines:
 ``device`` defaults to ``"cuda"``, and a machine without CUDA raises
 unless the caller asked for ``device="cpu"`` by name: no silent fallback.
 The container stage (:mod:`..utils.container`) runs on the host.
+
+Two layouts of the residuals reach the device: the row-major grid
+(:meth:`HGICodec.encode_plane`, :meth:`HGICodec.decode_plane`, kernels K1
+and K2) and the subband layout of the ``.thgi`` container
+(:meth:`HGICodec.encode_subbands`, :meth:`HGICodec.assemble_grid`,
+:meth:`HGICodec.decode_subbands` and :meth:`HGICodec.decode_preview`,
+kernels K3, K4 and K5).
 """
 
 from __future__ import annotations
@@ -156,6 +163,50 @@ class HGICodec:
         """uint8 [H, W] (or [B, H, W]) residual grid -> image on the device."""
         g = self._to_device(grid, "grid")
         return self._engine.decode_plane(g, self.levels, self.predictor)
+
+    # -- subband layout -------------------------------------------------------
+
+    def _layout_to_device(self, anchors, subbands):
+        a = self._to_device(anchors, "anchors")
+        return a, [tuple(self._to_device(q, "quad") for q in quads) for quads in subbands]
+
+    def encode_subbands(self, image):
+        """uint8 [H, W] (or [B, H, W]) image -> ``(anchors, subbands, recon)``.
+
+        The subband layout: the raw ``2**L`` anchors, then per level
+        (coarsest first) the ``(q01, q10, q11)`` residual quads, in the
+        canvas shapes of ``utils.container.subband_shapes``; quads hold
+        residuals also where their pixel lies in the canvas padding.  All
+        are uint8 tensors on the codec's device; ``recon`` is as in
+        :meth:`encode_plane`.
+        """
+        img = self._to_device(image, "image")
+        return self._engine.encode_subbands(img, self.levels, self._table, self.predictor)
+
+    def assemble_grid(self, anchors, subbands, shape) -> torch.Tensor:
+        """The subband layout -> the row-major residual grid of ``shape``
+        (H, W) on the device, e.g. for :func:`..utils.container.write_thgi`."""
+        a, s = self._layout_to_device(anchors, subbands)
+        return self._engine.assemble_grid(a, s, tuple(shape)[-2:])
+
+    def decode_subbands(self, anchors, subbands, shape) -> torch.Tensor:
+        """The subband layout -> the uint8 image of ``shape`` (H, W) on the
+        device, at the codec's depth and predictor, with no grid in
+        between; pairs with ``utils.container.read_thgi_subbands``."""
+        a, s = self._layout_to_device(anchors, subbands)
+        return self._engine.decode_subbands(
+            a, s, tuple(shape)[-2:], self.levels, self.predictor
+        )
+
+    def decode_preview(self, anchors, subbands, shape, upto: int) -> torch.Tensor:
+        """Progressive decode: the image sampled every ``s = 2**(L-upto)``
+        pixels, ``preview[i, j] == full[i * s, j * s]``, of shape
+        ``(ceil(H/s), ceil(W/s))``.  ``subbands`` needs only its first
+        ``upto`` levels; pairs with ``utils.container.read_preview``."""
+        a, s = self._layout_to_device(anchors, subbands)
+        return self._engine.decode_preview(
+            a, s, tuple(shape)[-2:], self.levels, upto, self.predictor
+        )
 
     # -- archive path (device compute + host container) ---------------------
 

@@ -99,6 +99,17 @@ def load() -> ctypes.CDLL:
         lib.hgi_encode.restype = i32
         lib.hgi_decode.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr]
         lib.hgi_decode.restype = i32
+        ptrs = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
+        lib.hgi_encode_subbands.argtypes = [
+            ptr, ptr, ptrs, ptr, ptr, i32, i32, i32, i32, i32, ptr,
+        ]
+        lib.hgi_encode_subbands.restype = i32
+        lib.hgi_assemble_grid.argtypes = [ptr, ptrs, ptr, i32, i32, i32, i32, ptr]
+        lib.hgi_assemble_grid.restype = i32
+        lib.hgi_decode_subbands.argtypes = [
+            ptr, ptrs, ptr, i32, i32, i32, i32, i32, i32, ptr,
+        ]
+        lib.hgi_decode_subbands.restype = i32
         lib.hgi_error_string.argtypes = [i32]
         lib.hgi_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,20 +1,29 @@
-"""The codec's two CUDA kernels, K1 (encode) and K2 (decode).
+"""The codec's five CUDA kernels.
 
-Counterpart of ``rustyhgi_tpu/ops/pallas_codec.py``: K1 replaces
-``_encode_batch`` and K2 ``_decode_batch``.  The kernels live in
-``csrc/hgi_codec.cu`` (its header note says what they compute, what
-bounds them on the card, and why the design is what it is) and are built
-by :mod:`._build` at first use.
+Counterpart of ``rustyhgi_tpu/ops/pallas_codec.py``:
+
+* K1 :func:`encode_plane` replaces ``_encode_batch``;
+* K2 :func:`decode_plane` replaces ``_decode_batch``;
+* K3 :func:`encode_subbands` replaces ``_encode_sub_batch``;
+* K4 :func:`assemble_grid` replaces ``_repack_words``;
+* K5 :func:`decode_subbands` and :func:`decode_preview` replace
+  ``_decode_sub_batch`` (K4's words fed into K2's decode): K5 reads the
+  quads directly.
+
+The kernels live in ``csrc/hgi_codec.cu`` (its header note says what they
+compute, what bounds them on the card, and why the design is what it is)
+and are built by :mod:`._build` at first use.
 
 A wrapper takes its kernel's plain version (:mod:`.pyramid`) for a tensor
 on the CPU, and only then.  For a CUDA tensor it launches the kernel or
-raises: it checks the dtype (uint8), rank (2 or 3) and contiguity, and
-raises when the kernel reports an error.  The kernels cover every depth,
-shape, predictor and quantizer table, so no CUDA configuration routes to
-the plain version.
+raises: it checks the dtype (uint8), rank (2 or 3), contiguity and, for
+the subband layout, every shape, and raises when the kernel reports an
+error.  The kernels cover every depth, shape, predictor and quantizer
+table, so no CUDA configuration routes to the plain version.
 
-``encode_launches`` and ``decode_launches`` count the calls of each
-kernel's C entry point (each runs the whole level loop), so a run can
+``encode_launches``, ``decode_launches``, ``encode_subbands_launches``,
+``assemble_launches`` and ``decode_subbands_launches`` count the calls of
+each kernel's C entry point (each runs the whole level loop), so a run can
 show that it went through the kernels.
 
 The quantizer table lives in the library's ``__constant__`` memory and is
@@ -31,14 +40,29 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..dyadic import effective_levels
+from ..dyadic import canvas_shapes, cdiv, effective_levels
 from . import _build, pyramid
 from .predictors import PREDICTORS, check_predictor
 
-__all__ = ["encode_plane", "decode_plane", "encode_launches", "decode_launches"]
+__all__ = [
+    "encode_plane",
+    "decode_plane",
+    "encode_subbands",
+    "assemble_grid",
+    "decode_subbands",
+    "decode_preview",
+    "encode_launches",
+    "decode_launches",
+    "encode_subbands_launches",
+    "assemble_launches",
+    "decode_subbands_launches",
+]
 
 encode_launches = 0
 decode_launches = 0
+encode_subbands_launches = 0
+assemble_launches = 0
+decode_subbands_launches = 0
 
 # Corner offsets are formed as y0 * w + x0 + step in the kernels; keeping
 # both dims at or below 2**30 keeps `1 << levels` and every step in int.
@@ -132,3 +156,152 @@ def decode_plane(
     decode_launches += 1
     _raise_on(lib, rc, "hgi_decode")
     return out
+
+
+# -- subband layout (K3, K4, K5) ----------------------------------------------
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _check_layout(anchors, subbands, h: int, w: int, levels: int, upto: int):
+    """Check a CUDA subband layout of depth ``levels`` for an ``h x w``
+    plane, of which the first ``upto`` levels are read; returns the batch
+    and the flat list of the quads read."""
+    b, _, _ = _check_cuda(anchors, "anchors")
+    if max(h, w) > _MAX_DIM or min(h, w) < 0:
+        raise ValueError(f"shape {(h, w)} is beyond the kernels' range")
+    lead = tuple(anchors.shape[:-2])
+    a_shape, q_shapes = canvas_shapes(h, w, levels)
+    if tuple(anchors.shape[-2:]) != a_shape:
+        raise ValueError(
+            f"anchors shape {tuple(anchors.shape)} does not match {(h, w)} at "
+            f"depth {levels}: expected {lead + a_shape}"
+        )
+    if len(subbands) < upto:
+        raise ValueError(f"{upto} levels needed, {len(subbands)} given")
+    flat = []
+    for level, (quads, q_shape) in enumerate(zip(subbands[:upto], q_shapes)):
+        if len(quads) != 3:
+            raise ValueError(f"level {level} must hold 3 quads, got {len(quads)}")
+        for q in quads:
+            _check_cuda(q, f"level {level} quad")
+            if q.device != anchors.device or tuple(q.shape) != lead + q_shape:
+                raise ValueError(
+                    f"level {level} quad {tuple(q.shape)} on {q.device}: expected "
+                    f"{lead + q_shape} on {anchors.device}"
+                )
+            flat.append(q)
+    return b, flat
+
+
+def encode_subbands(
+    image: torch.Tensor,
+    levels: int,
+    table: Optional[torch.Tensor] = None,
+    predictor: str = "crossed",
+    want_recon: bool = True,
+):
+    """K3: uint8 ``[H, W]``/``[B, H, W]`` -> ``(anchors, subbands, recon)``.
+
+    Same contract as :func:`.pyramid.encode_subbands`, padding residuals
+    included.
+    """
+    global encode_subbands_launches
+    predictor = check_predictor(predictor)
+    if image.device.type == "cpu":
+        return pyramid.encode_subbands(image, levels, table, predictor, want_recon)
+    b, h, w = _check_cuda(image, "image")
+    lv = effective_levels(levels, h, w)
+    lead = tuple(image.shape[:-2])
+    a_shape, q_shapes = canvas_shapes(h, w, lv)
+    anchors = image.new_empty(lead + a_shape)
+    subbands = [tuple(image.new_empty(lead + s) for _ in range(3)) for s in q_shapes]
+    tab = None if table is None else _table_bytes(table)
+    recon = image if tab is None else torch.empty_like(image)
+    if image.numel():
+        lib = _build.load()
+        with torch.cuda.device(image.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.hgi_encode_subbands(
+                image.data_ptr(), anchors.data_ptr(),
+                _ptrs([q for quads in subbands for q in quads]),
+                None if tab is None else recon.data_ptr(), tab,
+                b, h, w, lv, PREDICTORS[predictor], stream,
+            )
+        encode_subbands_launches += 1
+        _raise_on(lib, rc, "hgi_encode_subbands")
+    return anchors, subbands, (recon if want_recon else None)
+
+
+def assemble_grid(anchors: torch.Tensor, subbands, shape: Tuple[int, int]) -> torch.Tensor:
+    """K4: the subband layout -> the row-major uint8 grid of ``shape``.
+
+    Same contract as :func:`.pyramid.assemble_grid`: the depth is
+    ``len(subbands)``.
+    """
+    global assemble_launches
+    if anchors.device.type == "cpu":
+        return pyramid.assemble_grid(anchors, subbands, shape)
+    h, w = (int(d) for d in shape)
+    lv = len(subbands)
+    b, flat = _check_layout(anchors, subbands, h, w, lv, lv)
+    grid = anchors.new_empty((*anchors.shape[:-2], h, w))
+    if grid.numel() == 0:
+        return grid
+    lib = _build.load()
+    with torch.cuda.device(anchors.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hgi_assemble_grid(
+            anchors.data_ptr(), _ptrs(flat), grid.data_ptr(), b, h, w, lv, stream,
+        )
+    assemble_launches += 1
+    _raise_on(lib, rc, "hgi_assemble_grid")
+    return grid
+
+
+def decode_preview(
+    anchors: torch.Tensor,
+    subbands,
+    shape: Tuple[int, int],
+    levels: int,
+    upto: int,
+    predictor: str = "crossed",
+) -> torch.Tensor:
+    """K5 stopped after ``upto`` levels: the image sampled every
+    ``2**(L-upto)`` pixels, as :func:`.pyramid.decode_preview`."""
+    global decode_subbands_launches
+    predictor = check_predictor(predictor)
+    if anchors.device.type == "cpu":
+        return pyramid.decode_preview(anchors, subbands, shape, levels, upto, predictor)
+    h, w = (int(d) for d in shape)
+    lv = effective_levels(levels, h, w)
+    upto = max(0, min(int(upto), lv))
+    b, flat = _check_layout(anchors, subbands, h, w, lv, upto)
+    s = 1 << (lv - upto)
+    out = anchors.new_empty((*anchors.shape[:-2], cdiv(h, s), cdiv(w, s)))
+    if out.numel() == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(anchors.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hgi_decode_subbands(
+            anchors.data_ptr(), _ptrs(flat), out.data_ptr(), b, h, w, lv, upto,
+            PREDICTORS[predictor], stream,
+        )
+    decode_subbands_launches += 1
+    _raise_on(lib, rc, "hgi_decode_subbands")
+    return out
+
+
+def decode_subbands(
+    anchors: torch.Tensor,
+    subbands,
+    shape: Tuple[int, int],
+    levels: int,
+    predictor: str = "crossed",
+) -> torch.Tensor:
+    """K5: the subband layout -> the uint8 image of ``shape``."""
+    return decode_preview(anchors, subbands, shape, levels, levels, predictor)

@@ -106,13 +106,19 @@ def test_grid_shape_must_match_metadata():
 
 def test_other_containers_name_their_roadmap_item():
     archive = tc.Archive(tc.Metadata(QuantizationLevel.LOW, 0, 2, 2, 1), np.zeros((2, 2), np.uint8))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        tc.write_archive(archive, "thgi")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        tc.write_thgi(archive, fast=True)
     with pytest.raises(ValueError, match="unknown container format"):
         tc.write_archive(archive, "png")
-    with open(SYNTH + ".thgi", "rb") as f:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-            tc.read_archive(f.read())
+    # The device-coded .thgi codecs 2 and 7 of the fast mode.
+    for tag in (2, 7):
+        blob = tc._thgi_frame(archive.metadata, 0, tag, 4, b"\x00" * 16)
+        for read in (tc.read_archive, tc.read_thgi, lambda d: tc.read_thgi_preview(d, 1)):
+            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+                read(blob)
     for magic, item in ((tc.THGIC_MAGIC, 10), (tc.THGIT_MAGICS[1], 11)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
             tc.read_archive(struct.pack("<I", magic) + b"\x00" * 32)
+    for fmt, item in (("thgic", 10), ("thgit", 11)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+            tc.write_archive(archive, fmt)

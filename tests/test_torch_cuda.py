@@ -1,4 +1,4 @@
-"""The CUDA kernels against their plain PyTorch version, on the card.
+"""The CUDA kernels K1-K5 against their plain PyTorch version, on the card.
 
 Every test here needs a CUDA card and ``nvcc``, and skips without them.
 This file imports nothing of JAX, so that it runs on a machine that has
@@ -97,3 +97,86 @@ def test_codec_backends_agree(cuda, preset):
     archive = kern.encode(img)
     assert np.array_equal(archive.grid, plain.encode(img).grid)
     assert np.array_equal(kern.decode(archive), plain.decode(archive))
+
+
+# -- the subband layout: K3 (encode), K4 (assemble), K5 (decode, preview) ----
+
+
+def _assert_layouts_equal(a, b):
+    (anchors_a, subbands_a), (anchors_b, subbands_b) = a, b
+    assert torch.equal(anchors_a, anchors_b)
+    assert len(subbands_a) == len(subbands_b)
+    for quads_a, quads_b in zip(subbands_a, subbands_b):
+        for qa, qb in zip(quads_a, quads_b):
+            assert torch.equal(qa, qb)
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (17, 29), (1, 7), (9, 1), (3, 40, 56), (0, 0)])
+@pytest.mark.parametrize("preset", list(QuantizationLevel), ids=lambda p: p.name.lower())
+@pytest.mark.parametrize("pred", ["crossed", "left_top"])
+def test_subband_kernels_match_plain_version(cuda, shape, preset, pred):
+    img = torch.from_numpy(_image(shape)).to(cuda)
+    hw = img.shape[-2:]
+    table = _table(preset)
+    for levels in (0, 1, 2, 4, 8, 16):
+        anchors, subbands, recon = cuda_codec.encode_subbands(img, levels, table, pred)
+        want_a, want_s, want_r = pyramid.encode_subbands(img, levels, table, pred)
+        _assert_layouts_equal((anchors, subbands), (want_a, want_s))  # padding included
+        assert torch.equal(recon, want_r)
+        grid, grid_recon = cuda_codec.encode_plane(img, levels, table, pred)
+        assert torch.equal(recon, grid_recon)
+        assembled = cuda_codec.assemble_grid(anchors, subbands, hw)
+        assert torch.equal(assembled, pyramid.assemble_grid(anchors, subbands, hw))
+        assert torch.equal(assembled, grid)
+        dec = cuda_codec.decode_subbands(anchors, subbands, hw, levels, pred)
+        assert torch.equal(dec, pyramid.decode_subbands(anchors, subbands, hw, levels, pred))
+        assert torch.equal(dec, recon)
+        for upto in range(len(subbands) + 2):
+            got = cuda_codec.decode_preview(anchors, subbands[:upto], hw, levels, upto, pred)
+            want = pyramid.decode_preview(anchors, subbands[:upto], hw, levels, upto, pred)
+            assert torch.equal(got, want), upto
+        _, no_recon_s, no_recon = cuda_codec.encode_subbands(img, levels, table, pred, False)
+        assert no_recon is None
+        _assert_layouts_equal((anchors, no_recon_s), (anchors, subbands))
+
+
+def test_subband_launch_counters(cuda):
+    img = torch.from_numpy(_image((16, 24))).to(cuda)
+    before = (cuda_codec.encode_subbands_launches, cuda_codec.assemble_launches,
+              cuda_codec.decode_subbands_launches)
+    anchors, subbands, _ = cuda_codec.encode_subbands(img, 3)
+    cuda_codec.assemble_grid(anchors, subbands, (16, 24))
+    cuda_codec.decode_subbands(anchors, subbands, (16, 24), 3)
+    cuda_codec.decode_preview(anchors, subbands[:1], (16, 24), 3, 1)
+    after = (cuda_codec.encode_subbands_launches, cuda_codec.assemble_launches,
+             cuda_codec.decode_subbands_launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2] + 2)
+
+
+def test_subband_wrappers_reject_a_wrong_layout(cuda):
+    img = torch.from_numpy(_image((16, 24))).to(cuda)
+    anchors, subbands, _ = cuda_codec.encode_subbands(img, 3)
+    with pytest.raises(ValueError, match="anchors shape"):
+        cuda_codec.decode_subbands(anchors, subbands, (40, 24), 3)
+    bad = [subbands[0], (subbands[1][0], subbands[1][1], subbands[0][2])] + subbands[2:]
+    with pytest.raises(ValueError, match="level 1 quad"):
+        cuda_codec.assemble_grid(anchors, bad, (16, 24))
+    with pytest.raises(ValueError, match="3 levels needed"):
+        cuda_codec.decode_subbands(anchors, subbands[:2], (16, 24), 3)
+    with pytest.raises(ValueError, match="uint8"):
+        cuda_codec.decode_subbands(anchors.int(), subbands, (16, 24), 3)
+
+
+@pytest.mark.parametrize("preset", ["lossless", "medium"])
+def test_codec_subband_backends_agree(cuda, preset):
+    img = _image((135, 240))
+    kern = HGICodec(4, preset, backend="cuda")
+    plain = HGICodec(4, preset, backend="torch")
+    anchors, subbands, recon = kern.encode_subbands(img)
+    want = plain.encode_subbands(img)
+    _assert_layouts_equal((anchors, subbands), want[:2])
+    assert torch.equal(kern.assemble_grid(anchors, subbands, img.shape),
+                       plain.assemble_grid(anchors, subbands, img.shape))
+    assert torch.equal(kern.decode_subbands(anchors, subbands, img.shape), recon)
+    assert torch.equal(kern.decode_preview(anchors, subbands, img.shape, 2),
+                       plain.decode_preview(anchors, subbands, img.shape, 2))

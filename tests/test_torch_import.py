@@ -20,7 +20,10 @@ MODULES = [
     "rustyhgi_tpu_torch.dyadic",
     "rustyhgi_tpu_torch.models.codec",
     "rustyhgi_tpu_torch.ops._build",
+    "rustyhgi_tpu_torch.ops.ctxcoder",
     "rustyhgi_tpu_torch.ops.cuda_codec",
+    "rustyhgi_tpu_torch.ops.entropy",
+    "rustyhgi_tpu_torch.ops.native",
     "rustyhgi_tpu_torch.ops.predictors",
     "rustyhgi_tpu_torch.ops.pyramid",
     "rustyhgi_tpu_torch.ops.quantizers",
