@@ -8,15 +8,21 @@ Run from the root of a checkout:
 It needs one CUDA card, ``nvcc`` and a C++ compiler for ``native/``; it
 imports nothing of JAX.  Phases, each of which fails the run by raising:
 
-1. build the kernels of ``rustyhgi_tpu_torch/csrc/`` with ``nvcc``;
+1. build the kernels of ``rustyhgi_tpu_torch/csrc/`` with ``nvcc``, one
+   compiler per source, all at once;
 2. hold each kernel (K1-K5) against its plain PyTorch version on the
    card, bit for bit, over ragged shapes, depths 0-16, every preset, both
    predictors, every preview depth, and the real sizes 1080x1920,
    8x1080x1920 and 2614x2368; the subband kernels also against K1;
+   then the fast mode's kernels (X1 device rANS, K6 bit-plane pack, K7
+   unpack) over stream sizes at the lanes' and blocks' edges, degenerate
+   streams, and the residual grids of 1x and 8x1080x1920, 2614x2368 and
+   4096x4096 (the largest plane X1 takes);
 3. reproduce the JAX package's committed bytes with no JAX: the LENA
-   plane recovered from its lossless golden, its grids and its ``.hgi``
-   and ``.thgi`` digests (the latter need the native coders), the
-   decodes of the committed ``.thgi`` files, and the synthetic goldens;
+   plane recovered from its lossless golden, its grids and its ``.hgi``,
+   ``.thgi`` and fast ``.thgi`` digests (the ``.thgi`` ones need the
+   native coders), the decodes of the committed ``.thgi`` files, and the
+   synthetic goldens;
 4. drive the ``.hgi`` main path through its entry points (``HGICodec``
    with the container, then the CLI) at 1080x1920, and check that K1 and
    K2 were launched there;
@@ -25,8 +31,20 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    ``read_thgi_subbands``, ``decode_subbands``, ``decode_preview``, then
    the CLI's ``--format thgi``, ``decode`` and ``decode --preview 2``),
    and check that K3, K4 and K5 were launched there;
-6. time each kernel and its plain version with CUDA events, and read
-   their device time alone with ``torch.profiler``.
+6. drive the fast path the same way (``HGICodec.write_fast`` and
+   ``write_fast_batch`` at 1x and 8x1080x1920, ``read_thgi``, ``decode``,
+   ``write_thgi(codecs=["bitpack"], fast=True)``, the CLI's ``encode
+   --fast``, and the host rule above 2**24 pixels), and check that each
+   of those calls launched its kernels (K1 and X1 for each
+   ``write_fast``, ``write_fast_batch`` and ``encode --fast``, K6, K7 and
+   K2 for the others); the stages (K1, X1, the two copies to the host
+   beside the payload bytes, the framing, and the host race of
+   ``write_thgi`` on the same grid) are timed in calls of their own,
+   before the counted run;
+7. time each kernel and its plain version with CUDA events, and read
+   their device time alone with ``torch.profiler``; for X1's histogram,
+   also ``torch.bincount`` on the same grid; and X1's device time against
+   its rows and lanes, from one plane to 32.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -52,7 +70,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from rustyhgi_tpu_torch import HGICodec, cli
-from rustyhgi_tpu_torch.ops import _build, cuda_codec, native, pyramid
+from rustyhgi_tpu_torch.ops import _build, bitpack, cuda_codec, native, pyramid, tpurans
 from rustyhgi_tpu_torch.ops.quantizers import (
     QuantizationLevel,
     linear_error,
@@ -63,6 +81,7 @@ from rustyhgi_tpu_torch.utils.container import (
     Archive,
     read_archive,
     read_hgi,
+    read_thgi,
     read_thgi_preview,
     read_thgi_subbands,
     write_archive,
@@ -76,28 +95,42 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 SEED = 20261016
 REPEATS = 7  # timed runs per measurement, after one warm-up
-KERNELS = ("K1", "K2", "K3", "K4", "K5")
-REPLACES = {  # the Pallas kernel each replaces, rustyhgi_tpu/ops/pallas_codec.py
-    "K1": ("hgi_encode", 778), "K2": ("hgi_decode", 1037),
-    "K3": ("hgi_encode_subbands", 913), "K4": ("hgi_assemble_grid", 1249),
-    "K5": ("hgi_decode_subbands", 1321),
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "X1")
+_CODEC_SRC = "rustyhgi_tpu_torch/csrc/hgi_codec.cu"
+_ENTROPY_SRC = "rustyhgi_tpu_torch/csrc/hgi_entropy.cu"
+REPLACES = {  # C entry point, the TPU kernel it replaces, its source
+    "K1": ("hgi_encode", "rustyhgi_tpu/ops/pallas_codec.py:778", _CODEC_SRC),
+    "K2": ("hgi_decode", "rustyhgi_tpu/ops/pallas_codec.py:1037", _CODEC_SRC),
+    "K3": ("hgi_encode_subbands", "rustyhgi_tpu/ops/pallas_codec.py:913", _CODEC_SRC),
+    "K4": ("hgi_assemble_grid", "rustyhgi_tpu/ops/pallas_codec.py:1249", _CODEC_SRC),
+    "K5": ("hgi_decode_subbands", "rustyhgi_tpu/ops/pallas_codec.py:1321", _CODEC_SRC),
+    "K6": ("bitpack_pack", "rustyhgi_tpu/ops/pallas_kernels.py:120", _ENTROPY_SRC),
+    "K7": ("bitpack_unpack", "rustyhgi_tpu/ops/pallas_kernels.py:157", _ENTROPY_SRC),
+    "X1": ("rans_tpu_encode", "rustyhgi_tpu/ops/tpurans.py:172", _ENTROPY_SRC),
 }
 LAYOUT_NAMES = {0: "rowmajor", 1: "subband"}
 CODEC_NAMES = {tag: name for name, tag in container._CODEC_NAMES.items()}
-LAUNCHES = {  # each kernel's launch counter in cuda_codec
-    "K1": "encode_launches", "K2": "decode_launches",
-    "K3": "encode_subbands_launches", "K4": "assemble_launches",
-    "K5": "decode_subbands_launches",
+LAUNCHES = {  # each kernel's launch counter
+    "K1": (cuda_codec, "encode_launches"), "K2": (cuda_codec, "decode_launches"),
+    "K3": (cuda_codec, "encode_subbands_launches"), "K4": (cuda_codec, "assemble_launches"),
+    "K5": (cuda_codec, "decode_subbands_launches"),
+    "K6": (bitpack, "pack_launches"), "K7": (bitpack, "unpack_launches"),
+    "X1": (tpurans, "rans_launches"),
 }
+# Published peaks of one H100 SXM at 700 W: device memory, and float32
+# outside the tensor cores, which the kernels' integer work is held to
+# (int32 has no row of its own there, and issues at no higher rate).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 
 
 def _reset_launches() -> None:
-    for attr in LAUNCHES.values():
-        setattr(cuda_codec, attr, 0)
+    for module, attr in LAUNCHES.values():
+        setattr(module, attr, 0)
 
 
 def _read_launches() -> dict:
-    return {k: getattr(cuda_codec, attr) for k, attr in LAUNCHES.items()}
+    return {k: getattr(module, attr) for k, (module, attr) in LAUNCHES.items()}
 
 
 def _fail(msg: str) -> None:
@@ -132,9 +165,10 @@ def _table(preset, strategy="linear"):
 
 
 def _err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Worst |a - b| of two integer tensors of the same shape, in int64."""
     if a.shape != b.shape:
         _fail(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
-    return int((a.int() - b.int()).abs().max()) if a.numel() else 0
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
 def compare_kernels(rng) -> dict:
@@ -199,6 +233,86 @@ def compare_kernels(rng) -> dict:
     print(f"phase kernels-vs-plain: {len(cases)} cases ({previews} previews) bit-identical "
           f"(tolerance: exact), max_abs_err {worst}; K4(K3) == K1 grid and "
           f"K5(K3) == K1 recon in every case")
+    return worst
+
+
+def _rans_err(got, want) -> int:
+    """Worst difference of X1's outputs from the plain version's: freq,
+    counts, the states' u32 bits and the stored words' u16 bits."""
+    total = int(got[1].sum())
+    if int(want[1].sum()) != total:
+        return abs(int(want[1].sum()) - total)
+    return max(
+        _err(got[0], want[0]), _err(got[1], want[1]),
+        _err(got[2].long() & 0xFFFFFFFF, want[2].long() & 0xFFFFFFFF),
+        _err(got[3][:total].long() & 0xFFFF, want[3][:total].long() & 0xFFFF),
+    )
+
+
+def _expanded(packed, widths, nb: int, n: int) -> torch.Tensor:
+    """K6's output framed and re-expanded on the host, as a reader gets it."""
+    data = bitpack.finalize_packed(packed.cpu().numpy(), widths.cpu().numpy(), nb, n)
+    return torch.from_numpy(bitpack.expand_packed(data, n)[0]).to(DEVICE)
+
+
+def compare_fast_kernels(rng) -> dict:
+    """Phase 2, fast mode: X1, K6 and K7 against their plain versions,
+    bit for bit; returns the worst |err| of each."""
+    cases = []
+    for n in (1, 127, 128, 129, 511, 512, 513, 65536):
+        cases.append((f"uniform n={n}", rng.integers(0, 256, (1, n), dtype=np.uint8)))
+        cases.append((f"geometric n={n}", (rng.geometric(0.3, (1, n)) % 256).astype(np.uint8)))
+    cases += [("zeros", np.zeros((1, 10000), np.uint8)),
+              ("one symbol", np.full((1, 3000), 255, np.uint8)),
+              ("two symbols", np.tile(np.array([0, 255], np.uint8), (1, 500))),
+              ("all 256 symbols", np.tile(np.arange(256, dtype=np.uint8), (1, 4)))]
+    for shape in [(1, 1080, 1920), (8, 1080, 1920), (1, 2614, 2368), (1, 4096, 4096)]:
+        img = torch.from_numpy(_natural_plane(rng, shape)).to(DEVICE)
+        for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
+            grid = cuda_codec.encode_plane(img, 4, _table(preset))[0]
+            cases.append((f"grid {'x'.join(map(str, shape))} {preset.name.lower()}",
+                          grid.reshape(shape[0], -1)))
+    worst = dict.fromkeys(("X1", "K6", "K7"), 0)
+    shapes = {}
+    for name, sym in cases:
+        sym = torch.as_tensor(sym).to(DEVICE)
+        b, n = sym.shape
+        got = tpurans.encode_batch(sym)
+        err = _rans_err(got, tpurans.encode_plain(sym))
+        worst["X1"] = max(worst["X1"], err)
+        _check(err == 0, f"X1 differs from the plain version on {name}")
+        lanes = got[1].shape[1]
+        _check(lanes == tpurans.lanes_for(n), f"X1 lane count {lanes} on {name}")
+        shapes[name] = (lanes, -(-n // lanes))
+        heads = tpurans.fetch_heads(*got[:3])
+        payload = tpurans.frame_payloads(n, *heads, tpurans.fetch_words(got[3], heads[1]))[0]
+        _check(np.array_equal(tpurans.decode_bytes(payload, n), sym[0].cpu().numpy()),
+               f"X1 payload does not decode to its input on {name}")
+        flat = sym.reshape(-1)
+        packed, widths, nb = bitpack.pack_blocks(flat)
+        want_p, want_w, want_nb = bitpack.pack_plain(flat)
+        _check(nb == want_nb, f"K6 block count differs on {name}")
+        err = max(_err(packed[:nb], want_p), _err(widths[:nb], want_w))
+        worst["K6"] = max(worst["K6"], err)
+        _check(err == 0, f"K6 differs from the plain version on {name}")
+        expanded = _expanded(packed, widths, nb, flat.numel())
+        out = bitpack.unpack_blocks(expanded)
+        err = _err(out, bitpack.unpack_plain(expanded))
+        worst["K7"] = max(worst["K7"], err)
+        _check(err == 0, f"K7 differs from the plain version on {name}")
+        _check(torch.equal(out[: flat.numel()], flat), f"K7(K6) != input on {name}")
+    torch.cuda.synchronize()
+    too_big = torch.zeros(1, 4097 * 4096, dtype=torch.uint8, device=DEVICE)
+    try:
+        tpurans.encode_batch(too_big)
+    except ValueError as e:
+        _check("exceeds" in str(e), f"X1 above MAX_SYMBOLS raised {e}")
+    else:
+        _fail("X1 took a plane above MAX_SYMBOLS")
+    real = {k: v for k, v in shapes.items() if k.startswith("grid")}
+    print(f"phase fast-kernels-vs-plain: {len(cases)} streams, X1, K6 and K7 bit-identical "
+          f"(tolerance: exact), max_abs_err {worst}; every payload decodes to its input; "
+          f"(lanes L, rows T) {real}; 4097x4096 refused by X1")
     return worst
 
 
@@ -281,6 +395,25 @@ def reproduce_thgi_goldens(manifest: dict, lena: np.ndarray) -> None:
               f"{entry['decoded_sha256'][:8]}... by both paths")
     print("phase thgi-goldens: LENA .thgi digests (lossless, medium) reproduced with no "
           "JAX, committed .thgi files decoded")
+    reproduce_fast_goldens(manifest, lena)
+
+
+def reproduce_fast_goldens(manifest: dict, lena: np.ndarray) -> None:
+    """Phase 3, fast mode: the LENA ``write_fast`` digests, K1 + X1."""
+    for preset in ("lossless", "medium"):
+        entry = manifest[f"lena_l4_{preset}"]
+        codec = HGICodec(4, preset, device=DEVICE)
+        blob = codec.write_fast(lena)
+        _check(_sha(blob) == entry["fast_thgi_sha256"] and len(blob) == entry["fast_thgi_bytes"],
+               f"LENA {preset} fast .thgi digest {_sha(blob)[:8]} ({len(blob)} bytes) != "
+               f"manifest {entry['fast_thgi_sha256'][:8]} ({entry['fast_thgi_bytes']} bytes)")
+        archive = read_thgi(blob, device=DEVICE)
+        _check(np.array_equal(archive.grid, codec.encode(lena).grid),
+               f"LENA {preset} fast .thgi reads another grid")
+        _check(_sha(codec.decode(archive).tobytes()) == entry["decoded_sha256"],
+               f"LENA {preset} fast .thgi decode digest differs from the manifest")
+        print(f"LENA {preset}: fast .thgi sha256 {_sha(blob)} ({len(blob)} bytes) == manifest")
+    print("phase fast-goldens: LENA write_fast digests (lossless, medium) reproduced with no JAX")
 
 
 def main_path(rng) -> dict:
@@ -389,6 +522,157 @@ def subband_path(rng) -> dict:
     return stages
 
 
+def _fast_stages(codec: HGICodec, images: np.ndarray) -> tuple:
+    """``write_fast_batch`` taken apart stage by stage, each ended by a
+    synchronize, on the host clock; returns the blobs, the grids (on the
+    device), the stage times (ms) and the bytes each copy to the host
+    moved."""
+    ms = {}
+    t = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ms[name] = (t[-1] - t[-2]) * 1e3
+
+    b, h, w = images.shape
+    imgs = torch.from_numpy(images).to(DEVICE)
+    lap("H2D")
+    grid, _ = codec.encode_plane(imgs)
+    lap("K1")
+    freq, counts, states, stream = tpurans.encode_batch(grid.reshape(b, h * w))
+    lap("X1")
+    heads = tpurans.fetch_heads(freq, counts, states)
+    lap("fetch 1 (freq, counts, states)")
+    words = tpurans.fetch_words(stream, heads[1])
+    lap("fetch 2 (coded words)")
+    blobs = container.frame_rans_tpu(codec.metadata_for(h, w),
+                                      tpurans.frame_payloads(h * w, *heads, words))
+    lap("framing")
+    d2h = (4 * (freq.numel() + counts.numel() + states.numel()), 2 * words.size)
+    return blobs, grid, ms, d2h
+
+
+def fast_stages(rng) -> tuple:
+    """Phase 6, first part: the stages of ``write_fast_batch`` at 1x and
+    8x1080x1920, lossless and medium, called outside the fast path's
+    counted run; returns the planes and each case's stages."""
+    batch = _natural_plane(rng, (8, 1080, 1920))
+    stages = {}
+    for preset in ("lossless", "medium"):
+        codec = HGICodec(4, preset, device=DEVICE)
+        for b in (1, 8):
+            stages[(preset, b)] = _fast_stages(codec, batch[:b])
+    return batch, stages
+
+
+def _rising(label: str, kernels, fn):
+    """``fn()``, failing the run unless that one call launched each of
+    ``kernels``."""
+    before = _read_launches()
+    out = fn()
+    after = _read_launches()
+    for kernel in kernels:
+        _check(after[kernel] > before[kernel], f"{label} never launched {kernel}")
+    return out
+
+
+def fast_path(rng, batch: np.ndarray, stages: dict, card: str) -> None:
+    """Phase 6: the fast path through its entry points at 1x and
+    8x1080x1920, each call checked to launch its kernels; every blob read
+    back and decoded, and held against the stages of :func:`fast_stages`."""
+    image = batch[0]
+    for preset in ("lossless", "medium"):
+        codec = HGICodec(4, preset, device=DEVICE)
+        for images in (batch[:1], batch):
+            b = images.shape[0]
+            label = f"{b}x1080x1920 {preset}"
+            blobs, grid, ms, (d1, d2) = stages[(preset, b)]
+            t0 = time.perf_counter()
+            api = _rising(f"write_fast(_batch) {label}", ("K1", "X1"),
+                          lambda: [codec.write_fast(images[0])] if b == 1
+                          else codec.write_fast_batch(images))
+            end_to_end = (time.perf_counter() - t0) * 1e3
+            _check(api == blobs, f"fast path {label}: write_fast(_batch) != its stages")
+            grids = grid.cpu().numpy()
+            recon = codec.encode_plane(images)[1].cpu().numpy()
+            payload = sum(len(blob) for blob in blobs)
+            for i, blob in enumerate(blobs):
+                _check(blob[28] == 0 and CODEC_NAMES[blob[29]] == "rans_tpu",
+                       f"fast path {label}: blob {i} is not row-major codec 7")
+                archive = read_thgi(blob, device=DEVICE)
+                _check(np.array_equal(archive.grid, grids[i]),
+                       f"fast path {label}: blob {i} reads another grid")
+                decoded = _rising(f"decode of {label} blob {i}", ("K2",),
+                                  lambda: codec.decode(read_archive(blob, device=DEVICE)))
+                _check(np.array_equal(decoded, recon[i]),
+                       f"fast path {label}: blob {i} does not decode to the recon")
+                if b > 1:
+                    _check(blob == _rising(f"write_fast {label}[{i}]", ("K1", "X1"),
+                                           lambda: codec.write_fast(images[i])),
+                           f"fast path {label}: write_fast_batch[{i}] != write_fast")
+            shown = ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+            print(f"fast path {label}: {shown}; write_fast{'' if b == 1 else '_batch'} "
+                  f"end to end {end_to_end:.3f} ms (host clock); copies to the host: fetch 1 "
+                  f"{d1} B + fetch 2 {d2} B = {d1 + d2} B for {payload} B of payload "
+                  f"({b} blob(s)) [{card}]")
+        # The host race on the same grid, and codec 2 (K6 on write, K7 on read).
+        archive = Archive(codec.metadata_for(*image.shape), grids[0])
+        t0 = time.perf_counter()
+        raced = write_thgi(archive)
+        t1 = time.perf_counter()
+        packed = _rising(f"write_thgi(bitpack, fast) {preset}", ("K6",),
+                         lambda: write_thgi(archive, codecs=["bitpack"], fast=True, device=DEVICE))
+        t2 = time.perf_counter()
+        back = _rising(f"read_thgi of codec 2 {preset}", ("K7",),
+                       lambda: read_thgi(packed, device=DEVICE))
+        t3 = time.perf_counter()
+        _check(CODEC_NAMES[packed[29]] == "bitpack" and np.array_equal(back.grid, grids[0]),
+               f"fast path {preset}: codec 2 does not round-trip")
+        _check(np.array_equal(codec.decode(back), recon[0]),
+               f"fast path {preset}: codec 2 does not decode to the recon")
+        print(f"fast path 1x1080x1920 {preset}: host race write_thgi {(t1 - t0) * 1e3:.3f} ms -> "
+              f"layout {LAYOUT_NAMES[raced[28]]} codec {CODEC_NAMES[raced[29]]} {len(raced)} B; "
+              f"write_fast {len(blobs[0])} B ({100 * (len(blobs[0]) / len(raced) - 1):+.1f}%); "
+              f"codec 2 write_thgi(bitpack, fast) {(t2 - t1) * 1e3:.3f} ms {len(packed)} B, "
+              f"read_thgi {(t3 - t2) * 1e3:.3f} ms (host clock) [{card}]")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            save_gray("plane.png", image)
+            dev = ["--device", DEVICE]
+            for preset in ("lossless", "medium"):
+                codec = HGICodec(4, preset, device=DEVICE)
+                argv = ["encode", "-i", "plane.png", "-o", "f.thgi", "-q", preset,
+                        "--format", "thgi", "--fast", *dev]
+                _check(_rising(f"cli encode --fast -q {preset}", ("K1", "X1"),
+                               lambda: cli.main(argv)) == 0,
+                       f"cli encode --fast -q {preset} failed")
+                with open("f.thgi", "rb") as f:
+                    _check(f.read() == codec.write_fast(image),
+                           f"cli encode --fast -q {preset} != write_fast")
+                _check(_rising(f"cli decode of the fast -q {preset} .thgi", ("K2",),
+                               lambda: cli.main(["decode", "-i", "f.thgi", "-o", "f.png", *dev]))
+                       == 0, "cli decode of the fast .thgi failed")
+                _check(np.array_equal(load_luma("f.png"), codec.encode_plane(image)[1].cpu().numpy()),
+                       f"cli fast {preset} roundtrip != the encoder's recon")
+        finally:
+            os.chdir(cwd)
+    # Above 2**24 pixels the fast path writes with the host coders.
+    big = _natural_plane(rng, (4097, 4096))
+    codec = HGICodec(4, "lossless", device=DEVICE)
+    t0 = time.perf_counter()
+    blob = codec.write_fast(big)
+    took = (time.perf_counter() - t0) * 1e3
+    _check(blob[28] == 0 and CODEC_NAMES[blob[29]] not in ("rans_tpu", "bitpack"),
+           "write_fast above MAX_SYMBOLS did not take the host coders")
+    _check(np.array_equal(read_thgi(blob, device=DEVICE).grid, codec.encode(big).grid),
+           "write_fast above MAX_SYMBOLS reads another grid")
+    print(f"fast path 4097x4096 lossless (above 2**24 pixels): host coders, codec "
+          f"{CODEC_NAMES[blob[29]]}, {len(blob)} B in {took:.3f} ms (host clock) [{card}]")
+
+
 def _time(fn, flush: torch.Tensor) -> list:
     """ms of REPEATS CUDA-event-timed runs after a warm-up; L2 flushed."""
     fn()
@@ -405,63 +689,133 @@ def _time(fn, flush: torch.Tensor) -> list:
     return times
 
 
-def _device_ms(fn):
-    """Device time of one call in ms: the time of its CUDA kernels and
-    copies, summed by torch.profiler over REPEATS calls after a warm-up;
-    None when the trace holds no device time."""
+def _device_by_name(fn) -> dict:
+    """Device time of one call in ms by kernel or copy name, summed by
+    torch.profiler over REPEATS calls after a warm-up."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(REPEATS):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    return us / REPEATS / 1e3 if us > 0 else None
+    return {e.key: e.self_device_time_total / REPEATS / 1e3 for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def _device_ms(fn, only: str = ""):
+    """Device time of one call in ms: its CUDA kernels and copies (those
+    whose name holds ``only``); None when the trace holds no device time."""
+    ms = sum(v for k, v in _device_by_name(fn).items() if only in k)
+    return ms if ms > 0 else None
+
+
+def _bound(io_bytes: int, ops: int) -> tuple:
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = io_bytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _shown(d, e) -> str:
+    return ("not measured (no device time in the trace)" if d is None
+            else f"{d:.4f} ms ({100 * (1 - d / e):.1f}% idle in the event window)")
 
 
 def timings(rng, card: str) -> dict:
-    """Phase 6: kernel and plain version, same inputs, same call."""
+    """Phase 7: kernel and plain version, same inputs, same call."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
     rows = {}
     for shape in [(1, 1080, 1920), (8, 1080, 1920)]:
         img = torch.from_numpy(_natural_plane(rng, shape)).to(DEVICE)
         hw = img.shape[-2:]
+        b, n = shape[0], img.numel()
         for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
             table = _table(preset)
+            lossy = n if table is not None else 0
             grid = cuda_codec.encode_plane(img, 4, table)[0]
             anchors, subbands, _ = cuda_codec.encode_subbands(img, 4, table)
-            for kernel, kern, plain in (
+            canvas = anchors.numel() + sum(q.numel() for quads in subbands for q in quads)
+            flat = grid.reshape(-1)
+            packed, widths, nb = bitpack.pack_blocks(flat)
+            expanded = _expanded(packed, widths, nb, n)
+            sym = grid.reshape(b, -1)
+            counts = tpurans.encode_batch(sym)[1]
+            lanes, words = counts.shape[1], int(counts.sum())
+            cells = b * lanes * -(-sym.shape[1] // lanes)
+            # (kernel, kernel call, plain call, bytes each input read once and
+            # each output written once, integer operations estimated from
+            # the kernel's source per element)
+            for kernel, kern, plain, io_bytes, ops in (
                 ("K1", lambda: cuda_codec.encode_plane(img, 4, table),
-                 lambda: pyramid.encode_plane(img, 4, table)),
+                 lambda: pyramid.encode_plane(img, 4, table), 2 * n + lossy, 12 * n),
                 ("K2", lambda: cuda_codec.decode_plane(grid, 4),
-                 lambda: pyramid.decode_plane(grid, 4)),
+                 lambda: pyramid.decode_plane(grid, 4), 2 * n, 8 * n),
                 ("K3", lambda: cuda_codec.encode_subbands(img, 4, table),
-                 lambda: pyramid.encode_subbands(img, 4, table)),
+                 lambda: pyramid.encode_subbands(img, 4, table), n + canvas + lossy, 12 * canvas),
                 ("K4", lambda: cuda_codec.assemble_grid(anchors, subbands, hw),
-                 lambda: pyramid.assemble_grid(anchors, subbands, hw)),
+                 lambda: pyramid.assemble_grid(anchors, subbands, hw), canvas + n, 10 * n),
                 ("K5", lambda: cuda_codec.decode_subbands(anchors, subbands, hw, 4),
-                 lambda: pyramid.decode_subbands(anchors, subbands, hw, 4)),
+                 lambda: pyramid.decode_subbands(anchors, subbands, hw, 4), canvas + n, 8 * canvas),
+                ("K6", lambda: bitpack.pack_blocks(flat), lambda: bitpack.pack_plain(flat),
+                 n + packed.numel() + 4 * nb, 30 * packed.numel()),
+                ("K7", lambda: bitpack.unpack_blocks(expanded),
+                 lambda: bitpack.unpack_plain(expanded), 2 * expanded.numel(),
+                 30 * expanded.numel()),
+                ("X1", lambda: tpurans.encode_batch(sym), lambda: tpurans.encode_plain(sym),
+                 n + 4 * b * (256 + 2 * lanes) + 2 * words, 22 * cells),
             ):
                 # Plain, kernel, kernel, plain: compare within one call.
                 p1, k1 = _time(plain, flush), _time(kern, flush)
                 k2, p2 = _time(kern, flush), _time(plain, flush)
                 key = (kernel, "x".join(map(str, shape)), preset.name.lower())
                 k, p = statistics.median(k1 + k2), statistics.median(p1 + p2)
-                rows[key] = (k, p)
+                bound_ms, bound_by = _bound(io_bytes, ops)
+                rows[key] = {"ms": k, "plain_ms": p, "bound_ms": bound_ms, "bound_by": bound_by}
                 print(f"time {kernel} {REPLACES[kernel][0]} {key[1]} L4 {key[2]}: kernel "
                       f"median {k:.4f} ms [{min(k1 + k2):.4f}..{max(k1 + k2):.4f}], plain "
                       f"median {p:.4f} ms [{min(p1 + p2):.4f}..{max(p1 + p2):.4f}], "
-                      f"{2 * REPEATS} runs each, L2 flushed [{card}]")
+                      f"{2 * REPEATS} runs each, L2 flushed; bound {bound_ms:.4f} ms by "
+                      f"{bound_by} ({io_bytes} B, {ops} ops) [{card}]")
                 # The event window above includes the wrapper's host time
                 # whenever the card finishes first; the profiler's device
                 # time does not.
                 dk, dp = _device_ms(kern), _device_ms(plain)
-                shown = ("not measured (no device time in the trace)" if d is None
-                         else f"{d:.4f} ms ({100 * (1 - d / e):.1f}% idle in the event "
-                         f"window)" for d, e in ((dk, k), (dp, p)))
-                print(f"device {kernel} {key[1]} L4 {key[2]}: kernel {next(shown)}, plain "
-                      f"{next(shown)}, torch.profiler mean of {REPEATS} calls [{card}]")
+                rows[key]["device_ms"] = dk
+                print(f"device {kernel} {key[1]} L4 {key[2]}: kernel {_shown(dk, k)}, plain "
+                      f"{_shown(dp, p)}, torch.profiler mean of {REPEATS} calls [{card}]")
+            # X1's histogram alone, against the one PyTorch call that
+            # computes a histogram (over all planes at once when b > 1).
+            hist = _device_ms(lambda: tpurans.encode_batch(sym), "rans_histogram")
+            lib_ms = statistics.median(_time(lambda: torch.bincount(flat, minlength=256), flush))
+            lib_dev = _device_ms(lambda: torch.bincount(flat, minlength=256))
+            rows[("X1", key[1], key[2])].update(histogram_device_ms=hist, bincount_ms=lib_ms)
+            print(f"histogram {key[1]} L4 {key[2]}: X1 rans_histogram device "
+                  f"{'not measured' if hist is None else f'{hist:.4f} ms'}; torch.bincount "
+                  f"event median {lib_ms:.4f} ms, device "
+                  f"{'not measured' if lib_dev is None else f'{lib_dev:.4f} ms'} [{card}]")
     return rows
+
+
+def x1_scaling(rng, card: str) -> None:
+    """Phase 7, X1 alone: its device time against its rows T and its
+    threads B*L at medium.  A lane codes its T rows in turn, so while the
+    card has idle room the time follows T, not the pixels."""
+    for shape in [(1, 1080, 1920), (1, 2614, 2368), (1, 4096, 4096), (8, 1080, 1920),
+                  (32, 1080, 1920)]:
+        img = torch.from_numpy(_natural_plane(rng, shape)).to(DEVICE)
+        grid = cuda_codec.encode_plane(img, 4, _table(QuantizationLevel.MEDIUM))[0]
+        sym = grid.reshape(shape[0], -1)
+        lanes = tpurans.lanes_for(sym.shape[1])
+        rows = -(-sym.shape[1] // lanes)
+        parts = _device_by_name(lambda: tpurans.encode_batch(sym))
+        dev = sum(parts.values())
+        shown = ("not measured" if not dev
+                 else f"{dev:.4f} ms, {sym.numel() / dev / 1e3:.1f} MPix/s")
+        by_kernel = ", ".join(
+            f"{name} {sum(v for k, v in parts.items() if name in k):.4f}"
+            for name in ("rans_histogram", "rans_normalize", "rans_encode_lanes",
+                         "rans_lane_offsets", "rans_store_words", "Memset"))
+        print(f"x1-scaling {'x'.join(map(str, shape))} medium: L {lanes}, T {rows}, "
+              f"{shape[0] * lanes} threads: device {shown} ({by_kernel} ms) [{card}]")
 
 
 def main() -> int:
@@ -487,6 +841,7 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     worst = compare_kernels(rng)
+    worst.update(compare_fast_kernels(rng))
     reproduce_goldens()
 
     _reset_launches()
@@ -513,20 +868,34 @@ def main() -> int:
               f"layout {st['won'][0]} codec {st['won'][1]} at {st['won'][2]} bytes, the "
               f"subband layout by codec {st['subband'][0]} at {st['subband'][1]} bytes [{card}]")
 
+    batch, fast_stage = fast_stages(rng)  # launches X1 and K1 outside the count
+    _reset_launches()
+    fast_path(rng, batch, fast_stage, card)
+    fast_launches = _read_launches()
+    print(f"phase fast-path: launches {fast_launches}")
+    for kernel in ("K1", "X1", "K6", "K7", "K2"):
+        _check(fast_launches[kernel] > 0, f"the fast path never launched {kernel}")
+    for kernel in ("K6", "K7", "X1"):
+        launches[kernel] = fast_launches[kernel]
+
     rows = timings(rng, card)
+    x1_scaling(rng, card)
     _check("jax" not in sys.modules, "JAX was imported")
 
-    src = "rustyhgi_tpu_torch/csrc/hgi_codec.cu"
     kernels = []
     for kernel in KERNELS:
-        entry, line = REPLACES[kernel]
-        ms, plain_ms = rows[(kernel, "1x1080x1920", "medium")]
-        kernels.append({
-            "name": f"{kernel} {entry}", "route": "cuda", "source": src,
-            "replaces": f"rustyhgi_tpu/ops/pallas_codec.py:{line}",
+        entry, replaces, src = REPLACES[kernel]
+        row = rows[(kernel, "1x1080x1920", "medium")]
+        record = {
+            "name": f"{kernel} {entry}", "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kernel], "max_abs_err": worst[kernel],
-            "ms": ms, "plain_ms": plain_ms,
-        })
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+        }
+        if kernel == "X1":  # the histogram stage against torch.bincount
+            record["histogram_device_ms"] = row["histogram_device_ms"]
+            record["bincount_ms"] = row["bincount_ms"]
+        kernels.append(record)
     print(json.dumps({"kernels": kernels}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

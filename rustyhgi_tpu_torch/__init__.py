@@ -3,8 +3,10 @@
 The PyTorch port of ``rustyhgi_tpu`` (which stays the JAX reference it is
 held against).  The encode and decode kernels, on the row-major grid and
 on the subband layout, are hand-written CUDA for Hopper
-(``csrc/hgi_codec.cu``, built with ``nvcc`` at first use); on the CPU the
-plain PyTorch version of the same codec runs.  The ``.thgi`` container's
+(``csrc/hgi_codec.cu``), and so are the fast mode's device entropy coders,
+the lane-parallel rANS and the bit-plane pack (``csrc/hgi_entropy.cu``),
+all built with ``nvcc`` at first use; on the CPU the plain PyTorch
+version of the same codec runs.  The ``.thgi`` container's
 host coders are the repository's native library (``native/``), with
 pure-Python twins.  This package imports neither ``jax`` nor
 ``rustyhgi_tpu``.
@@ -23,8 +25,11 @@ Public API::
     meta, anchors, subbands = read_thgi_subbands(blob)
     image = codec.decode_subbands(anchors, subbands, (h, w))
 
-The ``.hgi`` main path and the ``.thgi`` subband path are ported;
-ROADMAP.md lists what follows.
+    blob = codec.write_fast(image_u8_hw)          # .thgi coded on the device
+    blobs = codec.write_fast_batch(images_u8_bhw)
+
+The ``.hgi`` main path, the ``.thgi`` subband path and the fast mode are
+ported; ROADMAP.md lists what follows.
 """
 
 from .models.codec import CodecMetrics, HGICodec

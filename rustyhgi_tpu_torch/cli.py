@@ -7,18 +7,24 @@ plus ``--format hgi|thgi``, ``decode --preview N``, ``--engine
 auto|cuda|torch`` (the codec's backend; the engines are bit-identical)
 and ``--device`` (default ``cuda``).
 
+``encode --format thgi --fast`` writes ``HGICodec.write_fast``: the
+grid entropy-coded on the device (codec 7), only coded bytes copied to
+the host.  As in the JAX CLI, ``--fast`` with ``--format hgi`` writes the
+``.hgi``, and ``test --fast`` writes ``write_archive``'s bytes.
+
 ``decode`` of a subband-layout ``.thgi`` reads the subbands straight into
 the subband decode; any other archive goes through the grid.
 ``--preview N`` decodes only the coarsest N levels (of a ``.thgi``, only
 the payload prefix they need).
 
 What the port does not have yet exits with 1 and names the ROADMAP
-item that ports it: ``--fast``, ``--color``, and the ``encode-tiled``,
+item that ports it: ``--color``, and the ``encode-tiled``,
 ``decode-tiled`` and ``bench`` commands.
 
 Usage::
 
     python -m rustyhgi_tpu_torch encode -i in.png -o out.thgi --format thgi
+    python -m rustyhgi_tpu_torch encode -i in.png -o fast.thgi --format thgi --fast
     python -m rustyhgi_tpu_torch decode -i out.thgi -o roundtrip.png
     python -m rustyhgi_tpu_torch decode -i out.thgi -o preview.png --preview 2
     python -m rustyhgi_tpu_torch test img.png -l 4 -q lossless --device cuda
@@ -39,6 +45,7 @@ from .utils.container import (
     THGIC_MAGIC,
     Archive,
     _magic,
+    is_subband_thgi,
     read_archive,
     read_preview,
     read_thgi_subbands,
@@ -48,10 +55,7 @@ from .utils.imageio import load_luma, save_gray
 
 # Flags and commands of the JAX CLI that this port does not have yet, with
 # the ROADMAP Queue 1 item that ports each.
-_UNPORTED_FLAGS = (
-    ("fast", "--fast", 8),
-    ("color", "--color", 10),
-)
+_UNPORTED_FLAGS = (("color", "--color", 10),)
 _UNPORTED_COMMANDS = {"encode-tiled": 11, "decode-tiled": 11, "bench": 12}
 
 
@@ -90,7 +94,11 @@ def _add_encoding_options(p: argparse.ArgumentParser) -> None:
         default="hgi",
         help="container format (hgi = reference byte-compatible)",
     )
-    p.add_argument("--fast", action="store_true", help="not ported yet")
+    p.add_argument(
+        "--fast",
+        action="store_true",
+        help="with --format thgi: entropy-code on the device (throughput over size)",
+    )
     p.add_argument(
         "--predictor",
         choices=("crossed", "left_top"),
@@ -126,9 +134,13 @@ def cmd_encode(args) -> int:
     _refuse_unported(args)
     quant = QuantizationLevel.parse(args.quantizator)
     codec = _codec(args, quant)
-    archive = codec.encode(load_luma(args.input))
+    image = load_luma(args.input)
+    if args.format == "thgi" and args.fast:
+        blob = codec.write_fast(image)
+    else:
+        blob = write_archive(codec.encode(image), args.format)
     with open(args.output, "wb") as f:
-        f.write(write_archive(archive, args.format))
+        f.write(blob)
     return 0
 
 
@@ -139,21 +151,19 @@ def cmd_decode(args) -> int:
         raise _not_ported(".thgic", 10)
     if args.preview is not None:
         # Only the coarsest N levels: a 2**(levels-N)-downsampled preview.
-        meta, anchors, subbands, upto = read_preview(data, args.preview)
+        meta, anchors, subbands, upto = read_preview(data, args.preview, device=args.device)
         shape = (meta.height, meta.width)
         preview = _archive_codec(args, meta).decode_preview(anchors, subbands, shape, upto)
         save_gray(args.output, preview.cpu().numpy())
         return 0
-    try:
+    if is_subband_thgi(data):
         # A subband-layout .thgi feeds the subband decode directly.
-        meta, anchors, subbands = read_thgi_subbands(data)
+        meta, anchors, subbands = read_thgi_subbands(data, device=args.device)
         shape = (meta.height, meta.width)
         image = _archive_codec(args, meta).decode_subbands(anchors, subbands, shape)
         save_gray(args.output, image.cpu().numpy())
         return 0
-    except ValueError:
-        pass  # not a subband .thgi: the grid path below
-    archive = read_archive(data)
+    archive = read_archive(data, device=args.device)
     # The archive's scale_level and interpolation tag drive the decode.
     save_gray(args.output, _codec(args).decode(archive))
     return 0
@@ -168,6 +178,7 @@ def cmd_test(args) -> int:
     grid, _ = codec.encode_plane(image)
     decoded = codec.decode_plane(grid).cpu().numpy()
     archive = Archive(codec.metadata_for(*image.shape), grid.cpu().numpy())
+    # --fast is ignored here, as in the JAX CLI: the archive is write_archive's.
     blob = write_archive(archive, args.format)
 
     diff = image.astype(np.int64) - decoded.astype(np.int64)

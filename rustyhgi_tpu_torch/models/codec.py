@@ -21,7 +21,10 @@ Two layouts of the residuals reach the device: the row-major grid
 and K2) and the subband layout of the ``.thgi`` container
 (:meth:`HGICodec.encode_subbands`, :meth:`HGICodec.assemble_grid`,
 :meth:`HGICodec.decode_subbands` and :meth:`HGICodec.decode_preview`,
-kernels K3, K4 and K5).
+kernels K3, K4 and K5).  :meth:`HGICodec.write_fast` and
+:meth:`HGICodec.write_fast_batch` also entropy-code on the device: K1's
+grid goes straight into the device rANS (X1), and only coded bytes cross
+to the host.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..ops import cuda_codec, pyramid
+from ..ops import cuda_codec, pyramid, tpurans
 from ..ops.predictors import check_predictor, predictor_name_for_tag, predictor_tag
 from ..ops.quantizers import (
     QuantizationLevel,
@@ -39,7 +42,7 @@ from ..ops.quantizers import (
     linear_table,
     quantize_fn,
 )
-from ..utils.container import Archive, Metadata, write_archive
+from ..utils.container import Archive, Metadata, frame_rans_tpu, write_archive, write_thgi
 from ..utils.profiling import codec_metrics
 
 __all__ = ["HGICodec", "CodecMetrics"]
@@ -107,6 +110,7 @@ class HGICodec:
         # None selects the engines' lossless path (recon is the source).
         self._table = None if quant.identity else quant.table
         self._engine = pyramid if backend == "torch" else cuda_codec
+        self._rans = tpurans.encode_plain if backend == "torch" else tpurans.encode_batch
 
     @classmethod
     def from_reference(
@@ -239,6 +243,50 @@ class HGICodec:
         g = self._to_device(archive.grid, "grid")
         out = self._engine.decode_plane(g, archive.metadata.scale_level, pred)
         return out.cpu().numpy()
+
+    def write_fast(self, image) -> bytes:
+        """The fast ``.thgi`` of a uint8 [H, W] plane: K1's grid coded by
+        the device rANS, codec 7 on the row-major layout.
+
+        The JAX writer's bytes.  A plane above ``tpurans.MAX_SYMBOLS``
+        pixels, beyond the device coder's exact histogram, is written by
+        ``write_thgi(..., layouts=("rowmajor",))`` with the host coders,
+        as in the JAX codec: a rule of the format.
+        """
+        img = self._to_device(image, "image")
+        if img.dim() != 2:
+            raise ValueError(f"expected [H, W], got {tuple(img.shape)}")
+        h, w = img.shape
+        if h * w > tpurans.MAX_SYMBOLS:
+            grid, _ = self._engine.encode_plane(img, self.levels, self._table, self.predictor)
+            return write_thgi(
+                Archive(self.metadata_for(h, w), grid.cpu().numpy()), layouts=("rowmajor",)
+            )
+        return self.write_fast_batch(img[None])[0]
+
+    def write_fast_batch(self, images) -> list:
+        """:meth:`write_fast` of each plane of a uint8 [B, H, W] batch.
+
+        One K1 launch and one X1 launch code the whole batch on the
+        device, each plane with its own table and streams; then two
+        copies bring the coded bytes to the host: the tables, counts and
+        states of every plane (a few KB each), then exactly their coded
+        words.  Blob ``i`` equals ``write_fast(images[i])`` byte for byte.
+        """
+        imgs = self._to_device(images, "images")
+        if imgs.dim() != 3:
+            raise ValueError(f"expected [B, H, W], got {tuple(imgs.shape)}")
+        b, h, w = imgs.shape
+        if b == 0:
+            return []
+        n = h * w
+        if n > tpurans.MAX_SYMBOLS:
+            return [self.write_fast(imgs[i]) for i in range(b)]
+        grid, _ = self._engine.encode_plane(imgs, self.levels, self._table, self.predictor)
+        freq, counts, states, stream = self._rans(grid.reshape(b, n))
+        heads = tpurans.fetch_heads(freq, counts, states)
+        payloads = tpurans.frame_payloads(n, *heads, tpurans.fetch_words(stream, heads[1]))
+        return frame_rans_tpu(self.metadata_for(h, w), payloads)
 
     def test(self, image, fmt: str = "hgi") -> CodecMetrics:
         """Roundtrip + metrics, mirroring ``hgi test`` (main.rs:73-120).

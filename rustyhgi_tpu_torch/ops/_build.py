@@ -1,11 +1,14 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, which is loaded with ``ctypes``; no
-PyTorch header is compiled, so a build takes seconds.  The library's
-name carries a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one is reused.  Without ``nvcc``, or when the
-compiler fails, :func:`load` raises with the compiler's output.
+Each source is compiled with its own ``nvcc`` for ``sm_90a``, all
+started together so that the build takes as long as its slowest source,
+and the objects are linked into one shared library with a plain C
+interface, which is loaded with ``ctypes``; no PyTorch header is
+compiled, so a build takes seconds.  The log beside the library gives
+each command's wall time.  The library's name carries a hash
+of the sources and flags, so an edited source rebuilds and an unchanged
+one is reused.  Without ``nvcc``, or when the compiler fails, :func:`load`
+raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -15,18 +18,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
 __all__ = ["BUILD_DIR", "SOURCES", "build", "find_nvcc", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "hgi_codec.cu",)
+SOURCES = (_PKG / "csrc" / "hgi_codec.cu", _PKG / "csrc" / "hgi_entropy.cu")
 BUILD_DIR = _PKG.parent / "build" / "rustyhgi_tpu_torch"
 
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
 )
 
@@ -67,26 +72,51 @@ def build(nvcc: Optional[str] = None, build_dir: Path = BUILD_DIR) -> Path:
             "cannot build the CUDA kernels: no nvcc in $CUDA_HOME/bin, on "
             "PATH or in /usr/local/cuda/bin"
         )
-    out = Path(build_dir) / f"libhgi_codec_{_digest()}.so"
+    digest = _digest()
+    out = Path(build_dir) / f"libhgi_codec_{digest}.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    objs = [out.with_name(f"{src.stem}_{digest}.{os.getpid()}.o") for src in SOURCES]
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    compiles = [[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(SOURCES, objs)]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"cannot run {nvcc}: {e}") from e
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+        log = _run_all(compiles)  # one nvcc per source, started together
+        log += _run_all([[nvcc, *_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{log}"
-        )
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
+
+
+def _run_all(cmds) -> str:
+    """Run the commands at once (one thread waits on each); their output,
+    each with its own wall time, or RuntimeError naming the first that
+    failed."""
+    def run(cmd):
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot run {cmd[0]}: {e}") from e
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        runs = list(pool.map(run, cmds))
+    for cmd, (proc, _) in zip(cmds, runs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+    return "".join(f"$ {' '.join(cmd)}  [{secs:.2f} s]\n{p.stdout}{p.stderr}"
+                   for cmd, (p, secs) in zip(cmds, runs))
 
 
 def load() -> ctypes.CDLL:
@@ -110,6 +140,13 @@ def load() -> ctypes.CDLL:
             ptr, ptrs, ptr, i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.hgi_decode_subbands.restype = i32
+        lib.rans_tpu_encode.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.rans_tpu_encode.restype = i32
+        i64 = ctypes.c_longlong
+        lib.bitpack_pack.argtypes = [ptr, ptr, ptr, i64, i64, ptr]
+        lib.bitpack_pack.restype = i32
+        lib.bitpack_unpack.argtypes = [ptr, ptr, i64, ptr]
+        lib.bitpack_unpack.restype = i32
         lib.hgi_error_string.argtypes = [i32]
         lib.hgi_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,4 +1,4 @@
-"""The codec's five CUDA kernels.
+"""The codec's five CUDA kernels, on the row-major grid and the subband layout.
 
 Counterpart of ``rustyhgi_tpu/ops/pallas_codec.py``:
 
@@ -12,7 +12,10 @@ Counterpart of ``rustyhgi_tpu/ops/pallas_codec.py``:
 
 The kernels live in ``csrc/hgi_codec.cu`` (its header note says what they
 compute, what bounds them on the card, and why the design is what it is)
-and are built by :mod:`._build` at first use.
+and are built by :mod:`._build` at first use.  The fast mode's device
+coders, in ``csrc/hgi_entropy.cu`` of the same library, have wrappers of
+their own: X1 in :mod:`.tpurans`, K6 and K7 in :mod:`.bitpack`.  In
+``write_fast`` K1's grid goes on the device straight into X1.
 
 A wrapper takes its kernel's plain version (:mod:`.pyramid`) for a tensor
 on the CPU, and only then.  For a CUDA tensor it launches the kernel or

@@ -9,7 +9,9 @@ argument types, so ctypes never cuts a pointer to 32 bits.
 Without the library (no compiler, or the build fails) :func:`available`
 is False and each ``native_*`` function raises RuntimeError; the callers
 in :mod:`.entropy` and :mod:`.ctxcoder` then take their pure-Python
-coders, which write the same bytes.
+coders, which write the same bytes.  The device rANS payload (codec 7)
+is decoded by :func:`native_rans_tpu_decode` here, or by the NumPy mirror
+in :mod:`.tpurans`.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ __all__ = [
     "native_rans_decompress",
     "native_ctx_compress",
     "native_ctx_decompress",
+    "native_rans_tpu_decode",
 ]
 
 NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
@@ -185,3 +188,30 @@ def native_ctx_decompress(data: bytes, pieces, adapt_shift: int = 5) -> bytes:
     if rc != 0:
         raise ValueError(f"ctx_decompress: malformed stream (code {rc})")
     return out.tobytes()
+
+
+_RANS_TPU_ERRORS = {
+    -1: "truncated rans_tpu stream",
+    -2: "rans_tpu stream size does not match declared size",
+    -3: "invalid rans_tpu lane count",
+    -4: "invalid rans_tpu frequency table",
+    -5: "rans_tpu lane count exceeds symbol rows",
+    -6: "rans_tpu stream underrun",
+    -7: "rans_tpu stream underrun or trailing words",
+    -8: "rans_tpu state mismatch (corrupt stream)",
+}
+
+
+def native_rans_tpu_decode(data: bytes, n: int) -> np.ndarray:
+    """Decode a device rANS payload (:mod:`.tpurans` format) to uint8 [n].
+
+    ``n`` is the header-derived size (the bomb guard); accepts and rejects
+    as the NumPy mirror does.
+    """
+    lib = _require()
+    src = np.frombuffer(data, dtype=np.uint8)
+    out = np.zeros(max(int(n), 1), dtype=np.uint8)
+    rc = int(lib.rans_tpu_decode(_u8ptr(src), src.size, _u8ptr(out), int(n)))
+    if rc != 0:
+        raise ValueError(_RANS_TPU_ERRORS.get(rc, f"rans_tpu: malformed stream ({rc})"))
+    return out[: int(n)]

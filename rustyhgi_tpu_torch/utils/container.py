@@ -10,10 +10,15 @@ Counterpart of ``rustyhgi_tpu/utils/container.py`` (its ``.hgi`` and
   subband layout: anchors plus per-level quads) coded by whichever
   entropy coder comes out smallest: DEFLATE, rANS, two-chunk rANS, a
   shared-table rANS, or (subband layout only) the context-adaptive
-  coder, single or chunked.
+  coder, single or chunked.  The fast mode (``write_thgi(fast=True)``)
+  codes on the device instead: codec 7, the lane-parallel rANS of
+  :mod:`..ops.tpurans` (the default), or codec 2, the bit-plane pack of
+  :mod:`..ops.bitpack` (``codecs=["bitpack"]``).
 
 The host side of the codec is numpy, zlib and the native coders
-(:mod:`..ops.native`); no tensor crosses this module.
+(:mod:`..ops.native`).  Tensors cross this module only in the fast
+codecs, whose ``device`` argument (default ``cuda``) says where their
+kernels run: X1 and K6 on write, K7 on read.
 
 ``.hgi`` byte layout (bincode 1.0 defaults: fixed-width little-endian
 ints, u32 enum tags, u64 length prefixes):
@@ -35,9 +40,7 @@ metadata above, u8 layout tag, u8 codec tag, u64 LE raw payload size,
 then the coded payload.
 
 Not ported yet, each raising ``NotImplementedError`` that names the
-ROADMAP item porting it: the ``.thgic`` and ``.thgit`` containers, and the
-device-coded ``.thgi`` codecs 2 (bit-plane pack) and 7 (device rANS) of
-the fast mode.
+ROADMAP item porting it: the ``.thgic`` and ``.thgit`` containers.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from ..dyadic import cdiv, effective_levels, subband_shapes
-from ..ops import ctxcoder, native
+from ..ops import bitpack, ctxcoder, native, tpurans
 from ..ops.entropy import rans_decode, rans_encode
 from ..ops.quantizers import QuantizationLevel
 
@@ -69,6 +72,8 @@ __all__ = [
     "read_thgi_subbands",
     "read_thgi_preview",
     "read_preview",
+    "frame_rans_tpu",
+    "is_subband_thgi",
     "subband_shapes",
     "split_grid_np",
     "assemble_grid_np",
@@ -83,7 +88,6 @@ THGIT_MAGICS = (0x7161_A555, 0x7161_A556)  # its tiled containers
 
 # ROADMAP Queue 1 items that port what this module refuses.
 _NOT_PORTED = {
-    "fast": ".thgi fast mode is not ported yet (ROADMAP Queue 1 item 8)",
     "thgic": ".thgic is not ported yet (ROADMAP Queue 1 item 10)",
     "thgit": ".thgit is not ported yet (ROADMAP Queue 1 item 11)",
 }
@@ -234,12 +238,12 @@ def read_hgi(data: bytes) -> Archive:
 
 _CODEC_DEFLATE = 0
 _CODEC_RANS = 1
-_CODEC_BITPACK = 2  # device bit-plane pack (fast mode; not ported yet)
+_CODEC_BITPACK = 2  # device bit-plane pack (fast mode)
 _CODEC_RANS_MT = 3  # two independent rANS chunks, coded in parallel
 _CODEC_CTX = 4  # context-adaptive binary range coder (subband layout only)
 _CODEC_RANS_SHARED = 5  # rANS against an external shared freq table
 _CODEC_CTX_MT = 6  # chunk-parallel ctx coder (subband layout only)
-_CODEC_RANS_TPU = 7  # device lane-parallel rANS (fast mode; not ported yet)
+_CODEC_RANS_TPU = 7  # device lane-parallel rANS (fast mode)
 _FAST_CODECS = (_CODEC_BITPACK, _CODEC_RANS_TPU)
 
 _RANS_TABLE_BYTES = 512  # u16 LE freq[256] prefix of every rANS stream
@@ -354,19 +358,29 @@ def _rans_mt_decode(body: bytes, raw_size: int) -> bytes:
     return fa.result() + fb.result()
 
 
-def _entropy_candidate_jobs(raw: bytes, allowed=None, freqs=None):
+def _entropy_candidate_jobs(raw: bytes, fast=False, allowed=None, freqs=None, device="cuda"):
     """``(codec tag, thunk)`` candidates for one payload, in the JAX
     writer's order.
 
-    The thunks release the GIL (zlib, the native coders through ctypes),
-    so the writer races them on a pool; one that raises only drops its
-    candidate.  DEFLATE's two strategies are two jobs.
+    The thunks release the GIL (zlib, the native coders through ctypes,
+    the device), so the writer races them on a pool; one that raises
+    ValueError or RuntimeError only drops its candidate.  DEFLATE's two
+    strategies are two jobs.  ``fast`` gives the one device-coded job on
+    ``device``: the device rANS, or the bit-plane pack when ``allowed``
+    names bitpack and not rans_tpu.
     """
 
     def keep(tag):
         return allowed is None or tag in allowed
 
     jobs = []
+    if fast:
+        if keep(_CODEC_RANS_TPU):
+            jobs.append((_CODEC_RANS_TPU, lambda: tpurans.encode_bytes(raw, device)))
+        elif keep(_CODEC_BITPACK):
+            jobs.append((_CODEC_BITPACK,
+                         lambda: bitpack.pack_bytes(np.frombuffer(raw, np.uint8), device)))
+        return jobs
     if keep(_CODEC_DEFLATE):
         for strategy in (zlib.Z_FILTERED, zlib.Z_DEFAULT_STRATEGY):
             jobs.append((_CODEC_DEFLATE, lambda s=strategy: _deflate_one(raw, s)))
@@ -422,6 +436,7 @@ def write_thgi(
     fast: bool = False,
     codecs=None,
     freqs=None,
+    device="cuda",
 ) -> bytes:
     """Serialize to the ``.thgi`` container, the bytes of the JAX writer.
 
@@ -435,13 +450,19 @@ def write_thgi(
     ``codecs`` restricts the candidates to names of ``_CODEC_NAMES``;
     ``freqs`` (u16[256] summing to 2**14, from
     :func:`..ops.entropy.normalized_freqs`) adds the shared-table rANS,
-    whose blocks decode only with the same table.  ``fast=True`` is the
-    device-coded mode, not ported yet.
+    whose blocks decode only with the same table.
+
+    ``fast=True`` is the device-coded mode: one candidate, the device
+    rANS (or, with ``codecs=["bitpack"]``, the bit-plane pack), its
+    kernels on ``device``, on the row-major layout alone whenever that is
+    among ``layouts``.  ``device`` serves nothing else.
     """
-    if fast:
-        raise NotImplementedError(_NOT_PORTED["fast"])
     if freqs is not None:
         freqs = _check_freqs(freqs)
+    if fast and "rowmajor" in layouts:
+        # Throughput over size: one device pass on one layout, not a race
+        # between two layouts coded alike.
+        layouts = ("rowmajor",)
     allowed = None
     if codecs is not None:
         try:
@@ -457,13 +478,13 @@ def write_thgi(
     jobs = []  # (layout, tag, raw_len, thunk)
     if "rowmajor" in layouts:
         raw = archive.grid.tobytes()
-        for tag, fn in _entropy_candidate_jobs(raw, allowed, freqs):
+        for tag, fn in _entropy_candidate_jobs(raw, fast, allowed, freqs, device):
             jobs.append((_LAYOUT_ROWMAJOR, tag, len(raw), fn))
     if "subband" in layouts and archive.metadata.scale_level > 0:
         raw = _subband_payload(archive)
-        for tag, fn in _entropy_candidate_jobs(raw, allowed, freqs):
+        for tag, fn in _entropy_candidate_jobs(raw, fast, allowed, freqs, device):
             jobs.append((_LAYOUT_SUBBAND, tag, len(raw), fn))
-        if (keep(_CODEC_CTX) or keep(_CODEC_CTX_MT)) and (
+        if not fast and (keep(_CODEC_CTX) or keep(_CODEC_CTX_MT)) and (
             allowed is not None or native.available()
         ):
             pieces = _ctx_pieces(archive.metadata)
@@ -487,8 +508,11 @@ def write_thgi(
     for layout, tag, raw_len, fut in futures:
         try:
             candidates.append((layout, tag, raw_len, fut.result()))
-        except (RuntimeError, ValueError):
+        except ValueError:
             pass  # this coder cannot take the payload; the others still race
+        except RuntimeError:
+            if fast:
+                raise  # the device coder failed (a CUDA error): not a refusal
     if not candidates:
         raise ValueError(f"no valid candidates for layouts={layouts!r} codecs={codecs!r}")
     layout, tag, raw_len, body = min(candidates, key=lambda c: len(c[3]))
@@ -503,6 +527,14 @@ def _thgi_frame(meta: Metadata, layout: int, codec: int, raw_size: int, body: by
         struct.pack("<BBQ", layout, codec, raw_size),
         body,
     ))
+
+
+def frame_rans_tpu(meta: Metadata, payloads) -> list:
+    """The fast ``.thgi`` of each device-rANS payload of ``meta``'s plane
+    (codec 7, row-major layout): what ``HGICodec.write_fast_batch``
+    returns."""
+    n = meta.width * meta.height
+    return [_thgi_frame(meta, _LAYOUT_ROWMAJOR, _CODEC_RANS_TPU, n, p) for p in payloads]
 
 
 def _expected_raw_size(meta: Metadata, layout: int) -> int:
@@ -544,11 +576,13 @@ def _shared_rans_decode(body: bytes, raw_size: int, freqs) -> bytes:
     return rans_decode(_check_freqs(freqs).tobytes() + body, raw_size)
 
 
-def read_thgi_payload(data: bytes, freqs=None):
+def read_thgi_payload(data: bytes, freqs=None, device="cuda"):
     """A ``.thgi`` container -> ``(metadata, layout, raw_payload, raw_size)``.
 
     ``raw_payload`` is the decoded byte stream; ``freqs`` is the shared
-    table of blocks written with ``write_thgi(..., freqs=...)``.
+    table of blocks written with ``write_thgi(..., freqs=...)``.  Codec 2
+    unpacks with K7 on ``device``, which serves nothing else; every other
+    codec, codec 7 included, decodes on the host.
     """
     meta, layout, tag, raw_size, body = _parse_thgi_header(data)
     if tag == _CODEC_DEFLATE:
@@ -559,8 +593,10 @@ def read_thgi_payload(data: bytes, freqs=None):
         raw = _shared_rans_decode(body, raw_size, freqs)
     elif tag == _CODEC_RANS_MT:
         raw = _rans_mt_decode(body, raw_size)
-    elif tag in _FAST_CODECS:
-        raise NotImplementedError(_NOT_PORTED["fast"])
+    elif tag == _CODEC_BITPACK:
+        raw = bitpack.unpack_bytes(body, expected_n=raw_size, device=device).tobytes()
+    elif tag == _CODEC_RANS_TPU:
+        raw = tpurans.decode_bytes(body, expected_n=raw_size).tobytes()
     elif tag in (_CODEC_CTX, _CODEC_CTX_MT):
         if layout != _LAYOUT_SUBBAND:
             raise ValueError("ctx codec requires the subband layout")
@@ -599,27 +635,36 @@ def _slice_subbands(meta: Metadata, raw: bytes, raw_size: int, upto=None):
     return anchors, subbands
 
 
-def read_thgi_subbands(data: bytes, freqs=None):
+def read_thgi_subbands(data: bytes, freqs=None, device="cuda"):
     """A subband-layout ``.thgi`` -> ``(metadata, anchors, subbands)``.
 
     The arrays (read-only views of the payload) feed
     ``HGICodec.decode_subbands`` directly.  Raises ValueError for a
-    row-major archive; callers then take :func:`read_thgi`.
+    row-major archive; callers then take :func:`read_thgi`.  ``device``
+    as for :func:`read_thgi_payload`.
     """
-    meta, layout, raw, raw_size = read_thgi_payload(data, freqs)
+    meta, layout, raw, raw_size = read_thgi_payload(data, freqs, device)
     if layout != _LAYOUT_SUBBAND:
         raise ValueError("archive is not in subband layout")
     anchors, subbands = _slice_subbands(meta, raw, raw_size)
     return meta, anchors, subbands
 
 
-def read_thgi_preview(data: bytes, upto: int, freqs=None):
+def is_subband_thgi(data: bytes) -> bool:
+    """Whether ``data`` is a subband-layout ``.thgi``, from its header
+    alone (checked as the readers check it); no payload is decoded."""
+    return _magic(data) == THGI_MAGIC and _parse_thgi_header(data)[1] == _LAYOUT_SUBBAND
+
+
+def read_thgi_preview(data: bytes, upto: int, freqs=None, device="cuda"):
     """Decode only the payload prefix that a level-``upto`` preview needs.
 
     Returns ``(metadata, anchors, subbands_prefix, upto)``, ``upto``
-    clamped to the archive's effective depth.  Every coder of the subband
-    layout decodes front to back, so only the prefix is decoded; a
-    row-major archive is decoded whole and split.
+    clamped to the archive's effective depth.  The host coders of the
+    subband layout decode front to back, so only the prefix is decoded; a
+    row-major archive, and one of the fast codecs (which have no such
+    prefix), is decoded whole and split.  ``device`` as for
+    :func:`read_thgi_payload`.
     """
     meta, layout, tag, raw_size, body = _parse_thgi_header(data)
     a_shape, q_shapes = subband_shapes(meta.height, meta.width, meta.scale_level)
@@ -627,7 +672,7 @@ def read_thgi_preview(data: bytes, upto: int, freqs=None):
     need = a_shape[0] * a_shape[1] + 3 * sum(h * w for h, w in q_shapes[:upto])
 
     if layout != _LAYOUT_SUBBAND or tag in _FAST_CODECS:
-        archive = read_thgi(data, freqs)
+        archive = read_thgi(data, freqs, device)
         anchors, subbands = split_grid_np(archive.grid, meta.scale_level)
         return meta, anchors, subbands[:upto], upto
 
@@ -658,12 +703,12 @@ def read_thgi_preview(data: bytes, upto: int, freqs=None):
     return meta, anchors, subbands, upto
 
 
-def read_preview(data: bytes, upto: int, freqs=None):
+def read_preview(data: bytes, upto: int, freqs=None, device="cuda"):
     """:func:`read_thgi_preview` for a ``.thgi``; a ``.hgi`` is read whole
     and split on the host.  Returns ``(metadata, anchors, subbands_prefix,
     upto)``."""
     if _magic(data) == THGI_MAGIC:
-        return read_thgi_preview(data, upto, freqs)
+        return read_thgi_preview(data, upto, freqs, device)
     archive = read_hgi(data)
     meta = archive.metadata
     anchors, subbands = split_grid_np(archive.grid, meta.scale_level)
@@ -671,9 +716,10 @@ def read_preview(data: bytes, upto: int, freqs=None):
     return meta, anchors, subbands[:upto], upto
 
 
-def read_thgi(data: bytes, freqs=None) -> Archive:
-    """Parse a ``.thgi`` container of either layout into an :class:`Archive`."""
-    meta, layout, raw, raw_size = read_thgi_payload(data, freqs)
+def read_thgi(data: bytes, freqs=None, device="cuda") -> Archive:
+    """Parse a ``.thgi`` container of either layout into an :class:`Archive`
+    (``device`` as for :func:`read_thgi_payload`)."""
+    meta, layout, raw, raw_size = read_thgi_payload(data, freqs, device)
     if layout == _LAYOUT_ROWMAJOR:
         if raw_size != meta.width * meta.height:
             raise ValueError("payload size does not match dimensions")
@@ -699,13 +745,14 @@ def write_archive(archive: Archive, fmt: str = "hgi", freqs=None) -> bytes:
     raise ValueError(f"unknown container format {fmt!r}")
 
 
-def read_archive(data: bytes, freqs=None) -> Archive:
-    """Auto-detect the container format from the magic."""
+def read_archive(data: bytes, freqs=None, device="cuda") -> Archive:
+    """Auto-detect the container format from the magic (``device`` as for
+    :func:`read_thgi_payload`)."""
     magic = _magic(data)
     if magic == HGI_MAGIC:
         return read_hgi(data)
     if magic == THGI_MAGIC:
-        return read_thgi(data, freqs)
+        return read_thgi(data, freqs, device)
     if magic == THGIC_MAGIC:
         raise NotImplementedError(_NOT_PORTED["thgic"])
     if magic in THGIT_MAGICS:

@@ -104,18 +104,30 @@ def test_grid_shape_must_match_metadata():
         tc.Archive(meta, np.zeros((5, 4), np.uint8))
 
 
+def test_fast_codecs_write_and_read_like_jax():
+    """The device-coded .thgi codecs 2 and 7 of the fast mode."""
+    grid = np.arange(4, dtype=np.uint8).reshape(2, 2)
+    archive = tc.Archive(tc.Metadata(QuantizationLevel.LOW, 0, 2, 2, 1), grid)
+    ref = jc.Archive(jc.Metadata(JQL.LOW, 0, 2, 2, 1), grid)
+    for tag, codecs in ((7, None), (2, ["bitpack"])):
+        blob = tc.write_thgi(archive, fast=True, codecs=codecs, device="cpu")
+        assert blob == jc.write_thgi(ref, fast=True, codecs=codecs) and blob[29] == tag
+        for read in (lambda d: tc.read_archive(d, device="cpu"),
+                     lambda d: tc.read_thgi(d, device="cpu")):
+            assert np.array_equal(read(blob).grid, grid)
+        # A body that is not the codec's stream is refused as JAX refuses it.
+        junk = tc._thgi_frame(archive.metadata, 0, tag, 4, b"\x00" * 16)
+        with pytest.raises(ValueError) as ours:
+            tc.read_thgi_preview(junk, 1, device="cpu")
+        with pytest.raises(ValueError) as want:
+            jc.read_thgi_preview(junk, 1)
+        assert str(ours.value) == str(want.value)
+
+
 def test_other_containers_name_their_roadmap_item():
     archive = tc.Archive(tc.Metadata(QuantizationLevel.LOW, 0, 2, 2, 1), np.zeros((2, 2), np.uint8))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        tc.write_thgi(archive, fast=True)
     with pytest.raises(ValueError, match="unknown container format"):
         tc.write_archive(archive, "png")
-    # The device-coded .thgi codecs 2 and 7 of the fast mode.
-    for tag in (2, 7):
-        blob = tc._thgi_frame(archive.metadata, 0, tag, 4, b"\x00" * 16)
-        for read in (tc.read_archive, tc.read_thgi, lambda d: tc.read_thgi_preview(d, 1)):
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-                read(blob)
     for magic, item in ((tc.THGIC_MAGIC, 10), (tc.THGIT_MAGICS[1], 11)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
             tc.read_archive(struct.pack("<I", magic) + b"\x00" * 32)

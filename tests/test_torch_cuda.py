@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K5 against their plain PyTorch version, on the card.
+"""The CUDA kernels K1-K7 and X1 against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA card and ``nvcc``, and skips without them.
 This file imports nothing of JAX, so that it runs on a machine that has
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from rustyhgi_tpu_torch import HGICodec
-from rustyhgi_tpu_torch.ops import cuda_codec, pyramid
+from rustyhgi_tpu_torch.ops import bitpack, cuda_codec, pyramid, tpurans
 from rustyhgi_tpu_torch.ops.quantizers import QuantizationLevel, quantize_fn
 
 pytestmark = pytest.mark.cuda
@@ -180,3 +180,103 @@ def test_codec_subband_backends_agree(cuda, preset):
     assert torch.equal(kern.decode_subbands(anchors, subbands, img.shape), recon)
     assert torch.equal(kern.decode_preview(anchors, subbands, img.shape, 2),
                        plain.decode_preview(anchors, subbands, img.shape, 2))
+
+
+# -- the fast mode: X1 (device rANS), K6 (bit-plane pack), K7 (unpack) --------
+
+
+def _streams():
+    """Seeded streams of the sizes and degenerate contents that the rANS
+    lanes and the pack blocks have edges at."""
+    rng = np.random.default_rng(21)
+    out = {}
+    for n in (1, 127, 128, 129, 511, 512, 513, 1024, 1025, 65536):
+        out[f"uniform-{n}"] = rng.integers(0, 256, n, dtype=np.uint8)
+        out[f"geometric-{n}"] = (rng.geometric(0.3, n) % 256).astype(np.uint8)
+    out["zeros"] = np.zeros(10000, np.uint8)
+    out["one-symbol"] = np.full(3000, 255, np.uint8)
+    out["two-symbols"] = np.tile(np.array([0, 255], np.uint8), 500)
+    out["all-256"] = np.tile(np.arange(256, dtype=np.uint8), 4)
+    return out
+
+
+STREAMS = _streams()
+
+
+def _assert_rans_equal(got, want):
+    freq, counts, states, stream = got
+    assert torch.equal(freq, want[0]) and torch.equal(counts, want[1])
+    assert torch.equal(states, want[2])
+    total = int(counts.sum())
+    assert torch.equal(stream[:total], want[3][:total])
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_rans_kernel_matches_plain_version(cuda, name):
+    sym = torch.from_numpy(STREAMS[name]).to(cuda)[None]
+    got = tpurans.encode_batch(sym)
+    _assert_rans_equal(got, tpurans.encode_plain(sym))
+    # The payload reads back through the host decoder.
+    heads = tpurans.fetch_heads(*got[:3])
+    payload = tpurans.frame_payloads(sym.shape[1], *heads, tpurans.fetch_words(got[3], heads[1]))[0]
+    assert np.array_equal(tpurans.decode_bytes(payload, sym.shape[1]), STREAMS[name])
+
+
+@pytest.mark.parametrize("shape", [(3, 61, 83), (2, 1, 1), (5, 300, 257)])
+def test_rans_kernel_batch_matches_plain_and_per_plane(cuda, shape):
+    rng = np.random.default_rng([22, *shape])
+    planes = torch.from_numpy((rng.geometric(0.2, shape) % 256).astype(np.uint8)).to(cuda)
+    sym = planes.reshape(shape[0], -1)
+    got = tpurans.encode_batch(sym)
+    _assert_rans_equal(got, tpurans.encode_plain(sym))
+    pos = 0
+    for i in range(shape[0]):
+        one = tpurans.encode_batch(sym[i : i + 1])
+        total = int(one[1].sum())
+        assert torch.equal(got[0][i], one[0][0]) and torch.equal(got[1][i], one[1][0])
+        assert torch.equal(got[3][pos : pos + total], one[3][:total])
+        pos += total
+
+
+def test_rans_kernel_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="empty stream"):
+        tpurans.encode_batch(torch.zeros(1, 0, dtype=torch.uint8, device=cuda))
+    with pytest.raises(ValueError, match="uint8"):
+        tpurans.encode_batch(torch.zeros(1, 8, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        tpurans.encode_batch(torch.zeros(2, 16, dtype=torch.uint8, device=cuda)[:, ::2])
+
+
+@pytest.mark.parametrize("name", list(STREAMS) + ["empty"])
+def test_bitpack_kernels_match_plain_version(cuda, name):
+    data = STREAMS.get(name, np.zeros(0, np.uint8))
+    flat = torch.from_numpy(data).to(cuda)
+    packed, widths, nb = bitpack.pack_blocks(flat)
+    want = bitpack.pack_plain(flat)
+    assert nb == want[2] and torch.equal(packed, want[0]) and torch.equal(widths, want[1])
+    expanded = torch.from_numpy(bitpack.expand_packed(
+        bitpack.finalize_packed(packed.cpu().numpy(), widths.cpu().numpy(), nb, data.size))[0]
+    ).to(cuda)
+    out = bitpack.unpack_blocks(expanded)
+    assert torch.equal(out, bitpack.unpack_plain(expanded))
+    assert np.array_equal(out[: data.size].cpu().numpy(), data)
+    assert np.array_equal(bitpack.unpack_bytes(bitpack.pack_bytes(data, cuda), device=cuda), data)
+
+
+def test_fast_launch_counters(cuda):
+    before = (tpurans.rans_launches, bitpack.pack_launches, bitpack.unpack_launches)
+    data = STREAMS["geometric-1025"]
+    tpurans.encode_bytes(data.tobytes(), cuda)
+    bitpack.unpack_bytes(bitpack.pack_bytes(data, cuda), device=cuda)
+    after = (tpurans.rans_launches, bitpack.pack_launches, bitpack.unpack_launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.parametrize("preset", ["lossless", "medium"])
+def test_codec_write_fast_backends_agree(cuda, preset):
+    images = np.stack([_image((135, 240), seed=s) // 4 for s in range(3)])
+    kern = HGICodec(4, preset, backend="cuda")
+    plain = HGICodec(4, preset, backend="torch")
+    blobs = kern.write_fast_batch(images)
+    assert blobs == plain.write_fast_batch(images)
+    assert blobs == [kern.write_fast(img) for img in images]

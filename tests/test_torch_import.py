@@ -20,6 +20,7 @@ MODULES = [
     "rustyhgi_tpu_torch.dyadic",
     "rustyhgi_tpu_torch.models.codec",
     "rustyhgi_tpu_torch.ops._build",
+    "rustyhgi_tpu_torch.ops.bitpack",
     "rustyhgi_tpu_torch.ops.ctxcoder",
     "rustyhgi_tpu_torch.ops.cuda_codec",
     "rustyhgi_tpu_torch.ops.entropy",
@@ -27,6 +28,7 @@ MODULES = [
     "rustyhgi_tpu_torch.ops.predictors",
     "rustyhgi_tpu_torch.ops.pyramid",
     "rustyhgi_tpu_torch.ops.quantizers",
+    "rustyhgi_tpu_torch.ops.tpurans",
     "rustyhgi_tpu_torch.utils.container",
     "rustyhgi_tpu_torch.utils.imageio",
     "rustyhgi_tpu_torch.utils.profiling",

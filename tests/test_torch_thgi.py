@@ -319,9 +319,19 @@ def test_cli_preview_of_an_hgi_matches_jax_cli(png):
     assert load_luma("ours.png").shape == (5, 8)
 
 
-def test_cli_fast_and_thgic_still_refused(png, capsys):
-    assert main(["encode", "-i", png, "-o", "x.thgi", "--format", "thgi", "--fast", *CPU]) == 1
-    assert "ROADMAP Queue 1 item 8" in capsys.readouterr().err
+def test_cli_fast_writes_the_jax_fast_thgi(png):
+    assert jax_main(["encode", "-i", png, "-o", "ref.thgi", "--format", "thgi", "--fast"]) == 0
+    assert main(["encode", "-i", png, "-o", "x.thgi", "--format", "thgi", "--fast", *CPU]) == 0
+    with open("ref.thgi", "rb") as a, open("x.thgi", "rb") as b:
+        assert a.read() == b.read()
+    # --fast with the reference format writes the .hgi, as the JAX CLI does.
+    assert jax_main(["encode", "-i", png, "-o", "ref.hgi", "--fast"]) == 0
+    assert main(["encode", "-i", png, "-o", "x.hgi", "--fast", *CPU]) == 0
+    with open("ref.hgi", "rb") as a, open("x.hgi", "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_cli_thgic_still_refused(png, capsys):
     with open("x.thgic", "wb") as f:
         f.write(struct.pack("<I", tc.THGIC_MAGIC) + b"\x00" * 40)
     assert main(["decode", "-i", "x.thgic", "-o", "x.png", "--preview", "1", *CPU]) == 1
