@@ -17,7 +17,9 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    then the fast mode's kernels (X1 device rANS, K6 bit-plane pack, K7
    unpack) over stream sizes at the lanes' and blocks' edges, degenerate
    streams, and the residual grids of 1x and 8x1080x1920, 2614x2368 and
-   4096x4096 (the largest plane X1 takes);
+   4096x4096 (the largest plane X1 takes); then the op-rate probe's kernel
+   (K8) over its five chains, k of 0 to 200 rounds, ragged shapes, an
+   unaligned buffer and 8x1080x1920 at k = 200;
 3. reproduce the JAX package's committed bytes with no JAX: the LENA
    plane recovered from its lossless golden, its grids and its ``.hgi``,
    ``.thgi`` and fast ``.thgi`` digests (the ``.thgi`` ones need the
@@ -41,10 +43,23 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    beside the payload bytes, the framing, and the host race of
    ``write_thgi`` on the same grid) are timed in calls of their own,
    before the counted run;
-7. time each kernel and its plain version with CUDA events, and read
-   their device time alone with ``torch.profiler``; for X1's histogram,
+7. drive the bench tier through its entry points, each run with the
+   launch counts set to 0 just before it and read just after: the probe
+   ``python -m rustyhgi_tpu_torch.tools.chip_probe vpucal`` (K8; its
+   rates, and the SASS instructions each chain issues a round), the CLI's
+   ``bench --batch 8 --samples 3`` (K1, K2) and ``python -m
+   rustyhgi_tpu_torch.bench --rounds 1`` (K1, K2, K3, K5, X1), whose rows
+   are printed.  The bench runs its host-coder group (DEFLATE-9 included)
+   on the whole batch: on an H100 the whole bench takes about 15 s, well
+   short of doubling this script's time;
+8. time each kernel and its plain version with CUDA events, and read
+   the kernel's device time alone with ``torch.profiler``; for X1's histogram,
    also ``torch.bincount`` on the same grid; and X1's device time against
-   its rows and lanes, from one plane to 32.
+   its rows and lanes, from one plane to 32.  Each kernel's bound is the
+   larger of its bytes over 3.35 TB/s and its operations over the card's
+   issue ceiling (132 SMs x 128 lanes x the SM clock's maximum), or over
+   the highest SASS instruction rate a K8 chain measured, where that is
+   higher.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -67,10 +82,9 @@ import zlib
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
-from rustyhgi_tpu_torch import HGICodec, cli
-from rustyhgi_tpu_torch.ops import _build, bitpack, cuda_codec, native, pyramid, tpurans
+from rustyhgi_tpu_torch import HGICodec, bench, cli
+from rustyhgi_tpu_torch.ops import _build, bitpack, cuda_codec, native, pyramid, tpurans, vpucal
 from rustyhgi_tpu_torch.ops.quantizers import (
     QuantizationLevel,
     linear_error,
@@ -88,6 +102,8 @@ from rustyhgi_tpu_torch.utils.container import (
     write_hgi,
     write_thgi,
 )
+from rustyhgi_tpu_torch.tools import chip_probe
+from rustyhgi_tpu_torch.utils.benchsuite import SUITE, device_samples
 from rustyhgi_tpu_torch.utils.imageio import load_luma, save_gray
 
 DEVICE = "cuda"
@@ -95,9 +111,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 SEED = 20261016
 REPEATS = 7  # timed runs per measurement, after one warm-up
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "X1")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "X1")
 _CODEC_SRC = "rustyhgi_tpu_torch/csrc/hgi_codec.cu"
 _ENTROPY_SRC = "rustyhgi_tpu_torch/csrc/hgi_entropy.cu"
+_PROBE_SRC = "rustyhgi_tpu_torch/csrc/hgi_probe.cu"
 REPLACES = {  # C entry point, the TPU kernel it replaces, its source
     "K1": ("hgi_encode", "rustyhgi_tpu/ops/pallas_codec.py:778", _CODEC_SRC),
     "K2": ("hgi_decode", "rustyhgi_tpu/ops/pallas_codec.py:1037", _CODEC_SRC),
@@ -106,6 +123,7 @@ REPLACES = {  # C entry point, the TPU kernel it replaces, its source
     "K5": ("hgi_decode_subbands", "rustyhgi_tpu/ops/pallas_codec.py:1321", _CODEC_SRC),
     "K6": ("bitpack_pack", "rustyhgi_tpu/ops/pallas_kernels.py:120", _ENTROPY_SRC),
     "K7": ("bitpack_unpack", "rustyhgi_tpu/ops/pallas_kernels.py:157", _ENTROPY_SRC),
+    "K8": ("hgi_vpucal", "tools/chip_probe.py:641", _PROBE_SRC),
     "X1": ("rans_tpu_encode", "rustyhgi_tpu/ops/tpurans.py:172", _ENTROPY_SRC),
 }
 LAYOUT_NAMES = {0: "rowmajor", 1: "subband"}
@@ -115,13 +133,20 @@ LAUNCHES = {  # each kernel's launch counter
     "K3": (cuda_codec, "encode_subbands_launches"), "K4": (cuda_codec, "assemble_launches"),
     "K5": (cuda_codec, "decode_subbands_launches"),
     "K6": (bitpack, "pack_launches"), "K7": (bitpack, "unpack_launches"),
-    "X1": (tpurans, "rans_launches"),
+    "K8": (vpucal, "vpucal_launches"), "X1": (tpurans, "rans_launches"),
 }
-# Published peaks of one H100 SXM at 700 W: device memory, and float32
-# outside the tensor cores, which the kernels' integer work is held to
-# (int32 has no row of its own there, and issues at no higher rate).
+# The published device-memory rate of one H100 SXM at 700 W.  The kernels'
+# operations are held to the card's issue ceiling: each of an SM's four
+# schedulers issues one 32-lane warp instruction a clock, so 132 SMs x 128
+# lanes x the SM clock (about 33.4 T instructions/s at 1980 MHz; the data
+# sheet's 67 TFLOP/s of FP32 is the same ceiling with an FMA counted as two
+# operations).  No mix of integer or FP32 instructions issues faster: K8's
+# chains of IADD3, LOP3, ISETP or FADD come within 4% of it, and a chain of
+# shifts (SHF, on the 64-lane INT32 pipe alone) reads half of it.  Where a K8 row's
+# SASS rate is higher, the bound takes it, so that it stays a lower bound.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+SMS, DISPATCH_LANES_PER_SM, INT32_LANES_PER_SM = 132, 128, 64
+K8_ROUNDS = 200  # K8's rounds in its timing row
 
 
 def _reset_launches() -> None:
@@ -142,11 +167,12 @@ def _check(cond: bool, msg: str) -> None:
         _fail(msg)
 
 
-def _smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def _max_sm_mhz() -> float:
+    """The SM clock's maximum in MHz, as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()[0])
 
 
 def _natural_plane(rng, shape) -> np.ndarray:
@@ -313,6 +339,32 @@ def compare_fast_kernels(rng) -> dict:
     print(f"phase fast-kernels-vs-plain: {len(cases)} streams, X1, K6 and K7 bit-identical "
           f"(tolerance: exact), max_abs_err {worst}; every payload decodes to its input; "
           f"(lanes L, rows T) {real}; 4097x4096 refused by X1")
+    return worst
+
+
+def compare_probe(rng) -> int:
+    """Phase 2, the probe: K8 against its plain version, bit for bit, over
+    the five chains; returns the worst |err|."""
+    images = [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(DEVICE)
+              for shape in [(1, 37, 53), (3, 7, 1), (2, 1, 7), (1, 17, 29), (2, 40, 64),
+                            (1, 5, 6), (1, 1080, 1920)]]
+    cases = [(img, kind, k) for img in images for kind in vpucal.KINDS
+             for k in (0, 1, 2, 7, 40, K8_ROUNDS)]
+    # W % 4 == 0 on a buffer one byte off its start: the byte-wise path.
+    buf = torch.from_numpy(rng.integers(0, 256, 1 + 3 * 16 * 64, dtype=np.uint8)).to(DEVICE)
+    cases += [(buf[1:].view(3, 16, 64), kind, k) for kind in vpucal.KINDS for k in (1, 40)]
+    big = torch.from_numpy(rng.integers(0, 256, (8, 1080, 1920), dtype=np.uint8)).to(DEVICE)
+    cases += [(big, kind, K8_ROUNDS) for kind in vpucal.KINDS]
+    worst = 0
+    for img, kind, k in cases:
+        err = _err(vpucal.vpucal_chain(img, kind, k), vpucal.vpucal_plain(img, kind, k))
+        worst = max(worst, err)
+        _check(err == 0, f"K8 {kind} k={k} differs from the plain version at "
+                         f"{tuple(img.shape)}")
+    torch.cuda.synchronize()
+    print(f"phase probe-vs-plain: {len(cases)} cases, K8 bit-identical (tolerance: exact), "
+          f"max_abs_err {worst}; kinds {list(vpucal.KINDS)}, k 0-{K8_ROUNDS}, ragged and "
+          f"unaligned shapes, 8x1080x1920 at k={K8_ROUNDS}")
     return worst
 
 
@@ -673,33 +725,72 @@ def fast_path(rng, batch: np.ndarray, stages: dict, card: str) -> None:
           f"{CODEC_NAMES[blob[29]]}, {len(blob)} B in {took:.3f} ms (host clock) [{card}]")
 
 
-def _time(fn, flush: torch.Tensor) -> list:
-    """ms of REPEATS CUDA-event-timed runs after a warm-up; L2 flushed."""
-    fn()
-    times = []
-    for _ in range(REPEATS):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
+def _captured(fn):
+    """``fn()`` with its standard output caught; returns (result, text)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn()
+    return rc, out.getvalue()
+
+
+def bench_tier(card: str) -> tuple:
+    """Phase 7: the probe, the CLI's bench and the bench through their
+    entry points, each with the launch counts set to 0 just before it and
+    read just after; returns the probe's rows and each path's launches."""
+    paths = {}
+    _reset_launches()
+    rc, text = _captured(lambda: chip_probe.main(["vpucal"]))
+    paths["vpucal"] = _read_launches()
+    print(text.rstrip())
+    _check(rc == 0, "chip_probe vpucal failed")
+    rates = json.loads(text.strip().splitlines()[-1])["vpucal"]
+    _check(set(rates) == set(chip_probe.ROWS) and all(r["ops_per_s"] > 0 for r in rates.values()),
+           "chip_probe vpucal did not measure every row")
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    rc, text = _captured(lambda: cli.main(["bench", "--batch", "8", "--samples", "3",
+                                          "--device", DEVICE]))
+    took = time.perf_counter() - t0
+    paths["cli bench"] = _read_launches()
+    print(f"cli bench --batch 8 --samples 3 ({took:.1f} s):\n{text.rstrip()} [{card}]")
+    _check(rc == 0 and [line.split()[0] for line in text.splitlines()] == list(SUITE),
+           "cli bench did not print the 8 criterion rows")
+
+    _reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        details_path = os.path.join(tmp, "details.json")
+        t0 = time.perf_counter()
+        rc, text = _captured(lambda: bench.main(["--rounds", "1", "--details", details_path]))
+        took = time.perf_counter() - t0
+        paths["bench"] = _read_launches()
+        with open(details_path) as f:
+            details = json.load(f)
+    last = json.loads(text.strip().splitlines()[-1])
+    _check(rc == 0 and set(last) == {"metric", "value", "unit", "vs_baseline"}
+           and last["value"] > 0 and last["vs_baseline"] > 0,
+           "rustyhgi_tpu_torch.bench printed no headline or no baseline ratio")
+    print(f"bench --rounds 1 ({took:.1f} s): {json.dumps(last)} [{card}]")
+    print(f"bench details: {json.dumps(details)}")
+    for label, kernels in (("vpucal", ("K8",)), ("cli bench", ("K1", "K2")),
+                           ("bench", ("K1", "K2", "K3", "K5", "X1"))):
+        print(f"phase bench-tier {label}: launches {paths[label]}")
+        for kernel in kernels:
+            _check(paths[label][kernel] > 0, f"the bench tier's {label} never launched {kernel}")
+    return rates, paths
+
+
+def _time(fn) -> list:
+    """ms of REPEATS CUDA-event-timed runs after a warm-up; L2 flushed
+    (``benchsuite.device_samples``)."""
+    return [t * 1e3 for t in device_samples(fn, REPEATS, DEVICE)]
 
 
 def _device_by_name(fn) -> dict:
-    """Device time of one call in ms by kernel or copy name, summed by
-    torch.profiler over REPEATS calls after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPEATS):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / REPEATS / 1e3 for e in prof.key_averages()
-            if e.self_device_time_total > 0}
+    """Device time of one call in ms by kernel or copy name, from
+    torch.profiler over REPEATS calls after a warm-up, a trace that holds
+    every record (``bench.device_trace``); empty when none did."""
+    return {k: v * 1e3 for k, v in bench.device_trace(fn, DEVICE).items()}
 
 
 def _device_ms(fn, only: str = ""):
@@ -709,9 +800,9 @@ def _device_ms(fn, only: str = ""):
     return ms if ms > 0 else None
 
 
-def _bound(io_bytes: int, ops: int) -> tuple:
+def _bound(io_bytes: int, ops: int, peak_ops: float) -> tuple:
     """The least time the card could take: (ms, "bytes" or "operations")."""
-    t_bytes, t_ops = io_bytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    t_bytes, t_ops = io_bytes / PEAK_BYTES_PER_S, ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -720,9 +811,8 @@ def _shown(d, e) -> str:
             else f"{d:.4f} ms ({100 * (1 - d / e):.1f}% idle in the event window)")
 
 
-def timings(rng, card: str) -> dict:
-    """Phase 7: kernel and plain version, same inputs, same call."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
+def timings(rng, card: str, peak_ops: float) -> dict:
+    """Phase 8: kernel and plain version, same inputs, same call."""
     rows = {}
     for shape in [(1, 1080, 1920), (8, 1080, 1920)]:
         img = torch.from_numpy(_natural_plane(rng, shape)).to(DEVICE)
@@ -762,30 +852,35 @@ def timings(rng, card: str) -> dict:
                  30 * expanded.numel()),
                 ("X1", lambda: tpurans.encode_batch(sym), lambda: tpurans.encode_plain(sym),
                  n + 4 * b * (256 + 2 * lanes) + 2 * words, 22 * cells),
+                ("K8", lambda: vpucal.vpucal_chain(img, "mix3", K8_ROUNDS),
+                 lambda: vpucal.vpucal_plain(img, "mix3", K8_ROUNDS), 2 * n, 3 * K8_ROUNDS * n),
             ):
                 # Plain, kernel, kernel, plain: compare within one call.
-                p1, k1 = _time(plain, flush), _time(kern, flush)
-                k2, p2 = _time(kern, flush), _time(plain, flush)
+                p1, k1 = _time(plain), _time(kern)
+                k2, p2 = _time(kern), _time(plain)
                 key = (kernel, "x".join(map(str, shape)), preset.name.lower())
                 k, p = statistics.median(k1 + k2), statistics.median(p1 + p2)
-                bound_ms, bound_by = _bound(io_bytes, ops)
+                bound_ms, bound_by = _bound(io_bytes, ops, peak_ops)
                 rows[key] = {"ms": k, "plain_ms": p, "bound_ms": bound_ms, "bound_by": bound_by}
-                print(f"time {kernel} {REPLACES[kernel][0]} {key[1]} L4 {key[2]}: kernel "
+                what = f"mix3 k={K8_ROUNDS}" if kernel == "K8" else f"L4 {key[2]}"
+                print(f"time {kernel} {REPLACES[kernel][0]} {key[1]} {what}: kernel "
                       f"median {k:.4f} ms [{min(k1 + k2):.4f}..{max(k1 + k2):.4f}], plain "
                       f"median {p:.4f} ms [{min(p1 + p2):.4f}..{max(p1 + p2):.4f}], "
                       f"{2 * REPEATS} runs each, L2 flushed; bound {bound_ms:.4f} ms by "
                       f"{bound_by} ({io_bytes} B, {ops} ops) [{card}]")
                 # The event window above includes the wrapper's host time
                 # whenever the card finishes first; the profiler's device
-                # time does not.
-                dk, dp = _device_ms(kern), _device_ms(plain)
+                # time does not.  The plain versions are not traced: X1's
+                # launches a kernel per symbol row, and after a trace of
+                # that size later traces drop records.
+                dk = _device_ms(kern)
                 rows[key]["device_ms"] = dk
-                print(f"device {kernel} {key[1]} L4 {key[2]}: kernel {_shown(dk, k)}, plain "
-                      f"{_shown(dp, p)}, torch.profiler mean of {REPEATS} calls [{card}]")
+                print(f"device {kernel} {key[1]} {what}: kernel {_shown(dk, k)}, "
+                      f"torch.profiler mean of {REPEATS} calls [{card}]")
             # X1's histogram alone, against the one PyTorch call that
             # computes a histogram (over all planes at once when b > 1).
             hist = _device_ms(lambda: tpurans.encode_batch(sym), "rans_histogram")
-            lib_ms = statistics.median(_time(lambda: torch.bincount(flat, minlength=256), flush))
+            lib_ms = statistics.median(_time(lambda: torch.bincount(flat, minlength=256)))
             lib_dev = _device_ms(lambda: torch.bincount(flat, minlength=256))
             rows[("X1", key[1], key[2])].update(histogram_device_ms=hist, bincount_ms=lib_ms)
             print(f"histogram {key[1]} L4 {key[2]}: X1 rans_histogram device "
@@ -796,7 +891,7 @@ def timings(rng, card: str) -> dict:
 
 
 def x1_scaling(rng, card: str) -> None:
-    """Phase 7, X1 alone: its device time against its rows T and its
+    """Phase 8, X1 alone: its device time against its rows T and its
     threads B*L at medium.  A lane codes its T rows in turn, so while the
     card has idle room the time follows T, not the pixels."""
     for shape in [(1, 1080, 1920), (1, 2614, 2368), (1, 4096, 4096), (8, 1080, 1920),
@@ -819,9 +914,10 @@ def x1_scaling(rng, card: str) -> None:
 
 
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
-    card = _smi()
+    card = chip_probe.card()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -842,6 +938,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     worst = compare_kernels(rng)
     worst.update(compare_fast_kernels(rng))
+    worst["K8"] = compare_probe(np.random.default_rng([SEED, 8]))  # leaves rng as it was
     reproduce_goldens()
 
     _reset_launches()
@@ -878,9 +975,23 @@ def main() -> int:
     for kernel in ("K6", "K7", "X1"):
         launches[kernel] = fast_launches[kernel]
 
-    rows = timings(rng, card)
+    rates, bench_paths = bench_tier(card)
+    launches["K8"] = bench_paths["vpucal"]["K8"]
+    mhz = _max_sm_mhz()
+    ceiling = SMS * DISPATCH_LANES_PER_SM * mhz * 1e6
+    sass = {name: r["sass_ops_per_s"] for name, r in rates.items() if r.get("sass_ops_per_s")}
+    peak_ops = max(ceiling, *sass.values())
+    shown = ", ".join(f"{name} {v / 1e12:.3f}" for name, v in sass.items()) or "not measured"
+    print(f"ops bound: issue ceiling {SMS} SMs x {DISPATCH_LANES_PER_SM} lanes x {mhz:.0f} MHz = "
+          f"{ceiling / 1e12:.3f} T instr/s (the {INT32_LANES_PER_SM}-lane INT32 pipe alone "
+          f"{SMS * INT32_LANES_PER_SM * mhz * 1e6 / 1e12:.3f} T); K8 mix3x16 measured "
+          f"{rates['mix3x16']['ops_per_s'] / 1e12:.3f} T op/s at 3 op/round; K8 SASS rates "
+          f"(T instr/s): {shown}; the bounds use {peak_ops / 1e12:.3f} T op/s [{card}]")
+
+    rows = timings(rng, card, peak_ops)
     x1_scaling(rng, card)
     _check("jax" not in sys.modules, "JAX was imported")
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - started:.1f} s")
 
     kernels = []
     for kernel in KERNELS:
@@ -889,7 +1000,8 @@ def main() -> int:
         record = {
             "name": f"{kernel} {entry}", "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kernel], "max_abs_err": worst[kernel],
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
         }
         if kernel == "X1":  # the histogram stage against torch.bincount
@@ -897,7 +1009,7 @@ def main() -> int:
             record["bincount_ms"] = row["bincount_ms"]
         kernels.append(record)
     print(json.dumps({"kernels": kernels}))
-    print(_smi())
+    print(chip_probe.card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

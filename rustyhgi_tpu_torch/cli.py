@@ -17,9 +17,13 @@ the subband decode; any other archive goes through the grid.
 ``--preview N`` decodes only the coarsest N levels (of a ``.thgi``, only
 the payload prefix they need).
 
+``bench`` runs the criterion suite (:mod:`.utils.benchsuite`) on the card
+(``--device cpu`` for the plain version on the host) and prints what the
+JAX CLI prints.
+
 What the port does not have yet exits with 1 and names the ROADMAP
-item that ports it: ``--color``, and the ``encode-tiled``,
-``decode-tiled`` and ``bench`` commands.
+item that ports it: ``--color``, and the ``encode-tiled`` and
+``decode-tiled`` commands.
 
 Usage::
 
@@ -28,6 +32,7 @@ Usage::
     python -m rustyhgi_tpu_torch decode -i out.thgi -o roundtrip.png
     python -m rustyhgi_tpu_torch decode -i out.thgi -o preview.png --preview 2
     python -m rustyhgi_tpu_torch test img.png -l 4 -q lossless --device cuda
+    python -m rustyhgi_tpu_torch bench --batch 8 --samples 25
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ from .utils.imageio import load_luma, save_gray
 # Flags and commands of the JAX CLI that this port does not have yet, with
 # the ROADMAP Queue 1 item that ports each.
 _UNPORTED_FLAGS = (("color", "--color", 10),)
-_UNPORTED_COMMANDS = {"encode-tiled": 11, "decode-tiled": 11, "bench": 12}
+_UNPORTED_COMMANDS = {"encode-tiled": 11, "decode-tiled": 11}
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -196,6 +201,14 @@ def cmd_test(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from .utils.benchsuite import format_suite, run_suite_stats
+
+    results = run_suite_stats(device=args.device, batch=args.batch, samples=args.samples)
+    print(format_suite(results))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="rustyhgi_tpu_torch",
@@ -223,6 +236,20 @@ def main(argv=None) -> int:
     p.add_argument("-s", "--suffix", default="")
     _add_encoding_options(p)
     p.set_defaults(fn=cmd_test)
+
+    p = sub.add_parser(
+        "bench",
+        help="benchmark suite mirroring the reference's criterion benches",
+    )
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument(
+        "--samples",
+        type=int,
+        default=25,
+        help="timing samples per bench (criterion sample_size parity)",
+    )
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_bench)
 
     for name in _UNPORTED_COMMANDS:
         sub.add_parser(name, help="not ported yet")

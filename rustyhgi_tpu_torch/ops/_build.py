@@ -26,7 +26,7 @@ from typing import Optional
 __all__ = ["BUILD_DIR", "SOURCES", "build", "find_nvcc", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "hgi_codec.cu", _PKG / "csrc" / "hgi_entropy.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in ("hgi_codec.cu", "hgi_entropy.cu", "hgi_probe.cu"))
 BUILD_DIR = _PKG.parent / "build" / "rustyhgi_tpu_torch"
 
 _FLAGS = (
@@ -147,6 +147,8 @@ def load() -> ctypes.CDLL:
         lib.bitpack_pack.restype = i32
         lib.bitpack_unpack.argtypes = [ptr, ptr, i64, ptr]
         lib.bitpack_unpack.restype = i32
+        lib.hgi_vpucal.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        lib.hgi_vpucal.restype = i32
         lib.hgi_error_string.argtypes = [i32]
         lib.hgi_error_string.restype = ctypes.c_char_p
         _lib = lib

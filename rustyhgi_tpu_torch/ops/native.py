@@ -1,10 +1,13 @@
-"""ctypes binding to the native host coders, ``native/librustyhgi.so``.
+"""ctypes binding to the native host library, ``native/librustyhgi.so``.
 
 Counterpart of ``rustyhgi_tpu/ops/native.py``.  The port loads the
 repository's native library as it is, built with ``make -C native`` on
 first use; it holds the rANS coder and the context-adaptive coder of the
-``.thgi`` container.  Every entry point is declared with pointer-sized
-argument types, so ctypes never cuts a pointer to 32 bits.
+``.thgi`` container, and the scalar C++ encode and decode
+(:func:`native_encode`, :func:`native_decode`), a single-threaded
+stand-in for the reference binary that the bench times as its baseline.
+Every entry point is declared with pointer-sized argument types, so
+ctypes never cuts a pointer to 32 bits.
 
 Without the library (no compiler, or the build fails) :func:`available`
 is False and each ``native_*`` function raises RuntimeError; the callers
@@ -24,8 +27,13 @@ from typing import Optional
 
 import numpy as np
 
+from ..dyadic import effective_levels
+from .quantizers import QuantizationLevel, linear_error
+
 __all__ = [
     "available",
+    "native_encode",
+    "native_decode",
     "native_rans_compress",
     "native_rans_decompress",
     "native_ctx_compress",
@@ -107,6 +115,27 @@ def _require() -> ctypes.CDLL:
 
 def _u8ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def native_encode(image: np.ndarray, levels: int, quantization) -> np.ndarray:
+    """Scalar C++ encode of a uint8 [H, W] plane -> residual grid."""
+    lib = _require()
+    work = np.array(image, dtype=np.uint8, copy=True, order="C")
+    h, w = work.shape
+    grid = np.zeros((h, w), dtype=np.uint8)
+    err = linear_error(QuantizationLevel(quantization))
+    lib.hgi_encode_plane(_u8ptr(work), _u8ptr(grid), w, h, effective_levels(levels, h, w), err)
+    return grid
+
+
+def native_decode(grid: np.ndarray, levels: int) -> np.ndarray:
+    """Scalar C++ decode of a uint8 [H, W] residual grid -> image."""
+    lib = _require()
+    grid = np.ascontiguousarray(grid, dtype=np.uint8)
+    h, w = grid.shape
+    image = np.zeros((h, w), dtype=np.uint8)
+    lib.hgi_decode_plane(_u8ptr(grid), _u8ptr(image), w, h, effective_levels(levels, h, w))
+    return image
 
 
 _scratch = threading.local()

@@ -1,17 +1,110 @@
-"""Distortion and size metrics for one roundtrip.
+"""Tracing, stage timing, and distortion and size metrics.
 
-Counterpart of ``codec_metrics`` and ``psnr`` in
-``rustyhgi_tpu/utils/profiling.py``.  Tracing and stage timers are not
-ported yet (ROADMAP Queue 1 item 12).
+Counterpart of ``rustyhgi_tpu/utils/profiling.py``:
+
+* :func:`trace` captures a ``torch.profiler`` trace (host, and the card's
+  kernels and copies on ``cuda``) around any codec region and writes it
+  into a directory as a Chrome trace (Perfetto, ``chrome://tracing``);
+* :class:`StageTimer` accumulates named stage times and derives rates,
+  with the JAX class's API, report and printout;
+* :func:`codec_metrics` and :func:`psnr`, the metric set of a roundtrip.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+import os
+import time
+from typing import Dict, Optional
 
 import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
 
-__all__ = ["codec_metrics", "psnr"]
+__all__ = ["trace", "StageTimer", "codec_metrics", "psnr"]
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str], device: str = "cuda"):
+    """Capture a host (and, on ``cuda``, device) profiler trace into
+    ``log_dir``, as ``trace_<pid>_<ns>.json``; ``log_dir=None`` writes no
+    file.  Yields the profiler, whose ``key_averages()`` sum the time by
+    operator and by kernel.  Usage::
+
+        with trace("/tmp/hgi-trace"):
+            codec.encode_plane(batch)
+
+    ``device="cuda"`` without a card raises: it never traces the host alone
+    in its place.
+    """
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("trace on cuda requested but CUDA is not available")
+        activities.append(ProfilerActivity.CUDA)
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if ProfilerActivity.CUDA in activities:
+            torch.cuda.synchronize()
+    if log_dir is not None:
+        prof.export_chrome_trace(
+            os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        )
+
+
+def _sync() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class StageTimer:
+    """Accumulates named stage durations and derives throughputs.
+
+    Unlike the JAX class, a stage holds its device time: once the process
+    has run CUDA work, :meth:`stage` synchronises the card when the stage
+    starts and again before it reads the clock at its end, so queued
+    kernels are charged to the stage that launched them.
+    """
+
+    def __init__(self) -> None:
+        self.seconds: Dict[str, float] = {}
+        self.items: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str, items: Optional[float] = None):
+        """Time a stage; ``items`` is the unit count (pixels, bytes...)."""
+        _sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _sync()
+            dt = time.perf_counter() - t0
+            self.seconds[name] = self.seconds.get(name, 0.0) + dt
+            if items is not None:
+                self.items[name] = self.items.get(name, 0.0) + items
+
+    def report(self) -> Dict[str, Dict[str, float]]:
+        out: Dict[str, Dict[str, float]] = {}
+        for name, sec in self.seconds.items():
+            entry = {"seconds": sec}
+            if name in self.items and sec > 0:
+                entry["items_per_s"] = self.items[name] / sec
+            out[name] = entry
+        return out
+
+    def __str__(self) -> str:
+        lines = []
+        for name, e in self.report().items():
+            rate = (
+                f"  {e['items_per_s'] / 1e6:10.1f} M/s"
+                if "items_per_s" in e
+                else ""
+            )
+            lines.append(f"{name:<24} {e['seconds'] * 1e3:9.2f} ms{rate}")
+        return "\n".join(lines)
 
 
 def psnr(original: np.ndarray, decoded: np.ndarray) -> float:

@@ -1,0 +1,100 @@
+"""The port's chip probe on the CPU: its SASS reader and its refusals.
+
+The probe's rates need the card (``chip_smoke.py`` runs it there); what
+runs here is the reading of ``cuobjdump -sass`` output, on listings
+written in its format, and the argument handling.
+"""
+
+import pytest
+import torch
+
+from rustyhgi_tpu_torch.tools import chip_probe
+
+
+def _insn(addr: int, text: str) -> str:
+    return f"        /*{addr:04x}*/                   {text} ;        /* 0x000000ffff037224 */\n"
+
+
+def _function(name: str, body, branch) -> str:
+    """A kernel: a prologue, a main loop of ``body`` closed by ``branch``,
+    a one-round remainder loop, and the store."""
+    text = f"\t\tFunction : {name}\n\t.headerflags\t@\"EF_CUDA_SM90\"\n"
+    addr = 0
+    for insn in ("LDC R1, c[0x0][0x28]", "S2R R2, SR_TID.X", "@!P0 BRA 0x0400"):
+        text += _insn(addr, insn)
+        addr += 16
+    top = addr
+    text += ".L_x_7:\n"
+    for insn in body:
+        text += _insn(addr, insn)
+        addr += 16
+    text += _insn(addr, branch(top))
+    addr += 16
+    rem = addr
+    for insn in ("IADD3 R9, R7, 0x1, R5", "SHF.R.S32.HI R12, RZ, 0x1, R9",
+                 "LOP3.LUT R7, R12, R7, RZ, 0x3c, !PT", "VIADD R5, R5, 0x1",
+                 "ISETP.GE.AND P0, PT, R5, R4, PT", f"@!P0 BRA 0x{rem:x}"):
+        text += _insn(addr, insn)
+        addr += 16
+    for insn in ("STG.E desc[UR6][R2.64], R7", "EXIT", "BRA {self}", "NOP"):
+        text += _insn(addr, insn.format(self=hex(addr)))  # the trap: a branch to itself
+        addr += 16
+    return text
+
+
+MIX3_BODY = (["IADD3 R9, R7, 0x1, R5", "SHF.R.S32.HI R12, RZ, 0x1, R9",
+              "LOP3.LUT R12, R12, R7, RZ, 0x3c, !PT"] * 16
+             + ["VIADD R11, R5, 0x8", "VIADD R5, R5, 0x4", "ISETP.GT.AND P0, PT, R11, R4, PT",
+                "NOP", "NOP"])
+
+
+@pytest.mark.parametrize(
+    "branch",
+    [lambda top: f"@!P0 BRA 0x{top:x}", lambda top: "@!P0 BRA `(.L_x_7)"],
+    ids=["address", "label"],
+)
+def test_sass_loops_counts_the_main_loop_of_each_word_kernel(branch):
+    mangled = ("_ZN45_GLOBAL__N__6450ca8f_12_hgi_probe_cu_09babe00"
+               "13vpucal_kernelILi{}ELb{}EEEvPKhPhiiixi")
+    sass = (_function("_ZN12_GLOBAL__N_111encode_levelILi0ELb1EEEvPKhPhS2_iiiix",
+                      ["IADD3 R1, R1, 0x1, RZ"] * 99, branch)
+            + _function(mangled.format(0, 0), ["FADD R1, R1, 1.5"] * 70, branch)
+            + _function(mangled.format(0, 1), MIX3_BODY, branch)
+            + _function(mangled.format(4, 1), ["FADD R1, R1, 1.5"] * 32 + ["FMUL R1, R1, 0.5"] * 16
+                        + ["UIADD3 UR4, UR4, 0x4, URZ", "ISETP.LT.AND P0, PT, R5, R4, PT"], branch))
+    loops = chip_probe.sass_loops(sass)
+    assert set(loops) == {"mix3", "f32add"}
+    mix3 = loops["mix3"]
+    # 48 chain instructions + 3 of loop control + the branch; the NOPs are not counted.
+    assert mix3["loop_instructions"] == 52
+    assert mix3["per_thread_round"] == 52 / chip_probe.UNROLL
+    assert mix3["per_pixel_round"] == 52 / (4 * chip_probe.UNROLL)
+    assert mix3["remainder_loop_instructions"] == 6
+    assert mix3["opcodes"]["IADD3"] == 16 and mix3["opcodes"]["BRA"] == 1
+    assert "NOP" not in mix3["opcodes"]
+    assert "ILi0ELb1E" in mix3["function"]
+    assert loops["f32add"]["opcodes"] == {"FADD": 32, "FMUL": 16, "UIADD3": 1,
+                                          "ISETP.LT.AND": 1, "BRA": 1}
+
+
+def test_sass_loops_of_a_listing_without_the_kernels_is_empty():
+    assert chip_probe.sass_loops("") == {}
+    assert chip_probe.sass_loops(_function("_Z3fooPi", ["IADD3 R1, R1, 0x1, RZ"],
+                                           lambda top: f"BRA 0x{top:x}")) == {}
+
+
+def test_vpucal_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        chip_probe.main(["vpucal"])
+
+
+def test_vpucal_rejects_unknown_rows(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="unknown vpucal rows"):
+        chip_probe.cmd_vpucal(["mix3x16", "xla"])
+
+
+def test_rows_are_the_jax_probes_with_torch_for_xla():
+    assert chip_probe.ROWS == ("mix3x16", "add", "shift", "csel", "f32add", "torch")
+    assert (chip_probe.K_LO, chip_probe.K_HI, chip_probe.SHAPE) == (200, 2000, (8, 1080, 1920))

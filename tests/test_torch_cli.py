@@ -92,13 +92,46 @@ def test_fast_flag_matches_jax_cli(png, capsys, argv, out):
         (["encode", "-i", "img.png", "-o", "x.thgic", "--color"], 10),
         (["encode-tiled", "-i", "img.png", "-o", "x.thgit", "--tile", "16"], 11),
         (["decode-tiled", "-i", "x.thgit", "-o", "x.png"], 11),
-        (["bench", "--batch", "2"], 12),
     ],
-    ids=["color", "encode-tiled", "decode-tiled", "bench"],
+    ids=["color", "encode-tiled", "decode-tiled"],
 )
 def test_unported_surface_exits_1_naming_its_roadmap_item(png, capsys, argv, item):
     assert main([*argv, *CPU] if argv[0] in ("encode", "decode", "test") else argv) == 1
     assert f"ROADMAP Queue 1 item {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [[], ["--batch", "2", "--samples", "2"]],
+                         ids=["defaults", "batch-samples"])
+def test_bench_on_the_cpu_prints_the_eight_criterion_rows(capsys, monkeypatch, flags):
+    from rustyhgi_tpu.utils.benchsuite import format_suite as jax_format
+
+    from rustyhgi_tpu_torch.utils import benchsuite
+
+    # The defaults time 8 planes 25 times each: keep the planes small.
+    monkeypatch.setattr(benchsuite, "W", 40 if flags else 16)
+    monkeypatch.setattr(benchsuite, "H", 24 if flags else 8)
+    shown = {}
+    real = benchsuite.run_suite_stats
+
+    def keep(**kw):
+        shown["args"] = kw
+        shown["results"] = real(**kw)
+        return shown["results"]
+
+    monkeypatch.setattr(benchsuite, "run_suite_stats", keep)
+    assert main(["bench", *flags, *CPU]) == 0
+    out = capsys.readouterr().out
+    assert [line.split()[0] for line in out.splitlines()] == list(benchsuite.SUITE)
+    assert out == jax_format(shown["results"]) + "\n"
+    want = {"device": "cpu", "batch": 8, "samples": 25} if not flags else \
+        {"device": "cpu", "batch": 2, "samples": 2}
+    assert shown["args"] == want
+
+
+def test_bench_without_a_card_exits_1(capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert main(["bench", "--batch", "1", "--samples", "1"]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
 
 
 def test_error_paths(png, capsys):

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K7 and X1 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K8 and X1 against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA card and ``nvcc``, and skips without them.
 This file imports nothing of JAX, so that it runs on a machine that has
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from rustyhgi_tpu_torch import HGICodec
-from rustyhgi_tpu_torch.ops import bitpack, cuda_codec, pyramid, tpurans
+from rustyhgi_tpu_torch.ops import bitpack, cuda_codec, pyramid, tpurans, vpucal
 from rustyhgi_tpu_torch.ops.quantizers import QuantizationLevel, quantize_fn
 
 pytestmark = pytest.mark.cuda
@@ -280,3 +280,32 @@ def test_codec_write_fast_backends_agree(cuda, preset):
     blobs = kern.write_fast_batch(images)
     assert blobs == plain.write_fast_batch(images)
     assert blobs == [kern.write_fast(img) for img in images]
+
+
+# -- K8, the op-rate probe ---------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 37, 53), (3, 7, 1), (2, 1, 7), (1, 17, 29),
+                                   (2, 40, 64), (1, 5, 6)])
+@pytest.mark.parametrize("kind", vpucal.KINDS)
+def test_probe_kernel_matches_plain_version(cuda, shape, kind):
+    img = torch.from_numpy(_image(shape)).to(cuda)
+    for k in (0, 1, 2, 7, 40, 200):
+        assert torch.equal(vpucal.vpucal_chain(img, kind, k), vpucal.vpucal_plain(img, kind, k))
+
+
+@pytest.mark.parametrize("kind", vpucal.KINDS)
+def test_probe_kernel_on_an_unaligned_buffer(cuda, kind):
+    # W % 4 == 0 but the data starts one byte into its buffer: the kernel
+    # takes its byte-wise path.
+    buf = torch.from_numpy(_image((1 + 3 * 16 * 64,))).to(cuda)
+    img = buf[1:].view(3, 16, 64)
+    assert torch.equal(vpucal.vpucal_chain(img, kind, 9), vpucal.vpucal_plain(img, kind, 9))
+
+
+def test_probe_kernel_launch_counter(cuda):
+    img = torch.from_numpy(_image((2, 8, 12))).to(cuda)
+    before = vpucal.vpucal_launches
+    vpucal.vpucal_chain(img, "mix3", 3)
+    vpucal.vpucal_chain(torch.empty(0, 4, 4, dtype=torch.uint8, device=cuda), "mix3", 3)
+    assert vpucal.vpucal_launches == before + 1

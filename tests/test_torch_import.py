@@ -16,6 +16,7 @@ FORBIDDEN = {"jax", "jaxlib", "rustyhgi_tpu"}
 MODULES = [
     "rustyhgi_tpu_torch",
     "rustyhgi_tpu_torch.__main__",
+    "rustyhgi_tpu_torch.bench",
     "rustyhgi_tpu_torch.cli",
     "rustyhgi_tpu_torch.dyadic",
     "rustyhgi_tpu_torch.models.codec",
@@ -29,6 +30,10 @@ MODULES = [
     "rustyhgi_tpu_torch.ops.pyramid",
     "rustyhgi_tpu_torch.ops.quantizers",
     "rustyhgi_tpu_torch.ops.tpurans",
+    "rustyhgi_tpu_torch.ops.vpucal",
+    "rustyhgi_tpu_torch.tools",
+    "rustyhgi_tpu_torch.tools.chip_probe",
+    "rustyhgi_tpu_torch.utils.benchsuite",
     "rustyhgi_tpu_torch.utils.container",
     "rustyhgi_tpu_torch.utils.imageio",
     "rustyhgi_tpu_torch.utils.profiling",
