@@ -12,12 +12,16 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    compiler per source, all at once;
 2. hold each kernel (K1-K5) against its plain PyTorch version on the
    card, bit for bit, over ragged shapes, depths 0-16, every preset, both
-   predictors, every preview depth, and the real sizes 1080x1920,
-   8x1080x1920 and 2614x2368; the subband kernels also against K1;
-   then the fast mode's kernels (X1 device rANS, K6 bit-plane pack, K7
-   unpack) over stream sizes at the lanes' and blocks' edges, degenerate
-   streams, and the residual grids of 1x and 8x1080x1920, 2614x2368 and
-   4096x4096 (the largest plane X1 takes); then the op-rate probe's kernel
+   predictors, every preview depth, the real sizes 1080x1920,
+   8x1080x1920 and 2614x2368, and shapes of many of lossy K1's tiles
+   with ragged edges (3x300x517 and 2614x2368 at depths 1-8, lossless
+   and medium); the subband kernels also against K1; then the fast
+   mode's kernels (X1 device rANS, K6 bit-plane pack, K7 unpack) over
+   stream sizes at the lanes' and blocks' edges, degenerate streams, a
+   constant plane with one odd byte (frequencies 1 and 16383, the
+   reciprocal's extremes), the residual grids of 1x and 8x1080x1920,
+   2614x2368 and 4096x4096 (the largest plane X1 takes) and a batch of
+   32 planes; then the op-rate probe's kernel
    (K8) over its five chains, k of 0 to 200 rounds, ragged shapes, an
    unaligned buffer and 8x1080x1920 at k = 200;
 3. reproduce the JAX package's committed bytes with no JAX: the LENA
@@ -46,20 +50,28 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
 7. drive the bench tier through its entry points, each run with the
    launch counts set to 0 just before it and read just after: the probe
    ``python -m rustyhgi_tpu_torch.tools.chip_probe vpucal`` (K8; its
-   rates, and the SASS instructions each chain issues a round), the CLI's
-   ``bench --batch 8 --samples 3`` (K1, K2) and ``python -m
+   rates, and the SASS instructions each chain issues a round), the
+   CLI's ``bench --batch 8 --samples 3`` (K1, K2) and ``python -m
    rustyhgi_tpu_torch.bench --rounds 1`` (K1, K2, K3, K5, X1), whose rows
    are printed.  The bench runs its host-coder group (DEFLATE-9 included)
    on the whole batch: on an H100 the whole bench takes about 15 s, well
    short of doubling this script's time;
 8. time each kernel and its plain version with CUDA events, and read
-   the kernel's device time alone with ``torch.profiler``; for X1's histogram,
-   also ``torch.bincount`` on the same grid; and X1's device time against
-   its rows and lanes, from one plane to 32.  Each kernel's bound is the
+   the kernel's device time alone, and the device kernels one call
+   launches, with ``torch.profiler`` (lossless K1 must be one launch at
+   depths 4 and 8, lossy K1 one at depth 4: checked first of all, while
+   the profiler's traces hold every record); for X1's histogram, also
+   ``torch.bincount`` on the same grid; and X1's device time against its
+   rows and lanes, from one plane to 32.  Each kernel's bound is the
    larger of its bytes over 3.35 TB/s and its operations over the card's
    issue ceiling (132 SMs x 128 lanes x the SM clock's maximum), or over
    the highest SASS instruction rate a K8 chain measured, where that is
-   higher.
+   higher.  X1 also has a chain bound: its rows T times the dependent
+   chain of its lanes loop, in SASS instructions a row (read with
+   ``cuobjdump -sass``), times 4 cycles, over the SM clock;
+9. run the probe's ``sweep`` (lossy K1's tile and fine depth, X1's lanes
+   a block) with the launch counts set to 0 just before it and read just
+   after (K1, X1).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -82,6 +94,7 @@ import zlib
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from rustyhgi_tpu_torch import HGICodec, bench, cli
 from rustyhgi_tpu_torch.ops import _build, bitpack, cuda_codec, native, pyramid, tpurans, vpucal
@@ -103,6 +116,7 @@ from rustyhgi_tpu_torch.utils.container import (
     write_thgi,
 )
 from rustyhgi_tpu_torch.tools import chip_probe
+from rustyhgi_tpu_torch.utils import profiling
 from rustyhgi_tpu_torch.utils.benchsuite import SUITE, device_samples
 from rustyhgi_tpu_torch.utils.imageio import load_luma, save_gray
 
@@ -147,6 +161,7 @@ LAUNCHES = {  # each kernel's launch counter
 PEAK_BYTES_PER_S = 3.35e12
 SMS, DISPATCH_LANES_PER_SM, INT32_LANES_PER_SM = 132, 128, 64
 K8_ROUNDS = 200  # K8's rounds in its timing row
+X1_ROWS_A_LOOP = 8  # rows a pass of X1's main lanes loop codes (two groups of 4, hgi_entropy.cu)
 
 
 def _reset_launches() -> None:
@@ -213,6 +228,13 @@ def compare_kernels(rng) -> dict:
         for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
             for pred in ("crossed", "left_top"):
                 cases.append((shape, 4, _table(preset), pred, preset))
+    # Many of lossy K1's tiles, ragged at the right and bottom, at every
+    # split of the depth between coarse launches and the tiled levels.
+    for shape in [(3, 300, 517), (2614, 2368)]:
+        for levels in range(1, 9):
+            for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
+                for pred in ("crossed", "left_top"):
+                    cases.append((shape, levels, _table(preset), pred, preset))
     worst = dict.fromkeys(KERNELS, 0)
     previews = 0
     for shape, levels, table, pred, preset in cases:
@@ -292,12 +314,18 @@ def compare_fast_kernels(rng) -> dict:
               ("one symbol", np.full((1, 3000), 255, np.uint8)),
               ("two symbols", np.tile(np.array([0, 255], np.uint8), (1, 500))),
               ("all 256 symbols", np.tile(np.arange(256, dtype=np.uint8), (1, 4)))]
+    odd = np.zeros((1, 1080 * 1920), np.uint8)
+    odd[0, 123457] = 77  # frequency 1 beside 16383: the reciprocal's extremes
+    cases.append(("one odd byte 1080x1920", odd))
     for shape in [(1, 1080, 1920), (8, 1080, 1920), (1, 2614, 2368), (1, 4096, 4096)]:
         img = torch.from_numpy(_natural_plane(rng, shape)).to(DEVICE)
         for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
             grid = cuda_codec.encode_plane(img, 4, _table(preset))[0]
             cases.append((f"grid {'x'.join(map(str, shape))} {preset.name.lower()}",
                           grid.reshape(shape[0], -1)))
+    img = torch.from_numpy(_natural_plane(rng, (32, 1080, 1920))).to(DEVICE)
+    cases.append(("grid 32x1080x1920 medium",
+                  cuda_codec.encode_plane(img, 4, _table(QuantizationLevel.MEDIUM))[0].reshape(32, -1)))
     worst = dict.fromkeys(("X1", "K6", "K7"), 0)
     shapes = {}
     for name, sym in cases:
@@ -310,6 +338,9 @@ def compare_fast_kernels(rng) -> dict:
         lanes = got[1].shape[1]
         _check(lanes == tpurans.lanes_for(n), f"X1 lane count {lanes} on {name}")
         shapes[name] = (lanes, -(-n // lanes))
+        if name.startswith("one odd byte"):
+            freqs = sorted(int(f) for f in got[0][0].cpu() if f)
+            _check(freqs == [1, 16383], f"X1 table {freqs} on {name}")
         heads = tpurans.fetch_heads(*got[:3])
         payload = tpurans.frame_payloads(n, *heads, tpurans.fetch_words(got[3], heads[1]))[0]
         _check(np.array_equal(tpurans.decode_bytes(payload, n), sym[0].cpu().numpy()),
@@ -338,7 +369,8 @@ def compare_fast_kernels(rng) -> dict:
     real = {k: v for k, v in shapes.items() if k.startswith("grid")}
     print(f"phase fast-kernels-vs-plain: {len(cases)} streams, X1, K6 and K7 bit-identical "
           f"(tolerance: exact), max_abs_err {worst}; every payload decodes to its input; "
-          f"(lanes L, rows T) {real}; 4097x4096 refused by X1")
+          f"(lanes L, rows T) {real}; frequencies 1 and 16383 in one table; 4097x4096 "
+          f"refused by X1")
     return worst
 
 
@@ -780,6 +812,26 @@ def bench_tier(card: str) -> tuple:
     return rates, paths
 
 
+def sweep(card: str) -> None:
+    """Last phase: ``chip_probe sweep`` through its entry point, with the
+    launch counts set to 0 just before it and read just after.  Last,
+    since its many traces leave the profiler dropping records in later
+    ones; a choice whose trace dropped records prints as not measured."""
+    _reset_launches()
+    t0 = time.perf_counter()
+    rc, text = _captured(lambda: chip_probe.main(["sweep"]))
+    launches = _read_launches()
+    print(f"{text.rstrip()}\nchip_probe sweep ({time.perf_counter() - t0:.1f} s) [{card}]")
+    _check(rc == 0, "chip_probe sweep failed")
+    rows = json.loads(text.strip().splitlines()[-1])["sweep"]
+    timed = [v for group in rows.values() for v in group.values()]
+    print(f"phase sweep: launches {launches}; {sum(1 for v in timed if v)} of {len(timed)} "
+          f"choices timed")
+    _check(any(timed), "chip_probe sweep timed no choice")
+    for kernel in ("K1", "X1"):
+        _check(launches[kernel] > 0, f"chip_probe sweep never launched {kernel}")
+
+
 def _time(fn) -> list:
     """ms of REPEATS CUDA-event-timed runs after a warm-up; L2 flushed
     (``benchsuite.device_samples``)."""
@@ -798,6 +850,43 @@ def _device_ms(fn, only: str = ""):
     whose name holds ``only``); None when the trace holds no device time."""
     ms = sum(v for k, v in _device_by_name(fn).items() if only in k)
     return ms if ms > 0 else None
+
+
+def _device_trace(fn) -> tuple:
+    """One call of ``fn`` under torch.profiler, REPEATS calls after a
+    warm-up: (device ms of its kernels and copies, device kernels launched
+    a call, copies and memsets not counted).  A trace whose counts are no
+    multiple of REPEATS dropped records and is taken again; (None, None)
+    when three did."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profiling.trace(None, DEVICE) as prof:
+            for _ in range(REPEATS):
+                fn()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if events and all(e.count % REPEATS == 0 for e in events):
+            ms = sum(e.self_device_time_total for e in events) / REPEATS / 1e3
+            n = sum(e.count for e in events if "Memcpy" not in e.key and "Memset" not in e.key)
+            return ms, n / REPEATS
+    return None, None
+
+
+def _x1_chain(mhz: float) -> dict:
+    """X1's lanes loop in SASS (``cuobjdump -sass`` of the library): its
+    dependent chain a row, and what that gives at 4 cycles an instruction;
+    empty without cuobjdump."""
+    sass = chip_probe.library_sass()
+    if sass is None:
+        return {}
+    name = f"rans_encode_lanesILi{tpurans.LANE_BLOCK}ELb1E"
+    chain = chip_probe.sass_chain(sass, name, X1_ROWS_A_LOOP, "IMAD.HI.U32")
+    _check(chain is not None, f"no lanes loop found in the SASS of {name}")
+    _check(not any(op.startswith(("IDIV", "I2F", "MUFU")) for op in chain["chain_opcodes"]),
+           f"X1's lanes loop divides: {chain['chain_opcodes']}")
+    chain["ns_a_row"] = chain["chain_per_row"] * 4 / mhz * 1e3
+    return chain
 
 
 def _bound(io_bytes: int, ops: int, peak_ops: float) -> tuple:
@@ -855,6 +944,9 @@ def timings(rng, card: str, peak_ops: float) -> dict:
                 ("K8", lambda: vpucal.vpucal_chain(img, "mix3", K8_ROUNDS),
                  lambda: vpucal.vpucal_plain(img, "mix3", K8_ROUNDS), 2 * n, 3 * K8_ROUNDS * n),
             ):
+                # The kernel's trace first: the plain versions launch many
+                # kernels, after which the profiler's traces drop records.
+                dk, launched = _device_trace(kern)
                 # Plain, kernel, kernel, plain: compare within one call.
                 p1, k1 = _time(plain), _time(kern)
                 k2, p2 = _time(kern), _time(plain)
@@ -873,10 +965,11 @@ def timings(rng, card: str, peak_ops: float) -> dict:
                 # time does not.  The plain versions are not traced: X1's
                 # launches a kernel per symbol row, and after a trace of
                 # that size later traces drop records.
-                dk = _device_ms(kern)
-                rows[key]["device_ms"] = dk
+                rows[key].update(device_ms=dk, device_launches=launched)
+                count = ("launches not measured" if launched is None
+                         else f"{launched:g} device launch(es) a call")
                 print(f"device {kernel} {key[1]} {what}: kernel {_shown(dk, k)}, "
-                      f"torch.profiler mean of {REPEATS} calls [{card}]")
+                      f"torch.profiler mean of {REPEATS} calls; {count} [{card}]")
             # X1's histogram alone, against the one PyTorch call that
             # computes a histogram (over all planes at once when b > 1).
             hist = _device_ms(lambda: tpurans.encode_batch(sym), "rans_histogram")
@@ -890,10 +983,29 @@ def timings(rng, card: str, peak_ops: float) -> dict:
     return rows
 
 
-def x1_scaling(rng, card: str) -> None:
+def k1_launches(rng, card: str) -> None:
+    """Phase 8, K1's device launches a call at 1080x1920: one for lossless
+    at any depth, one for lossy up to FINE_LEVELS, one more per coarser
+    level."""
+    img = torch.from_numpy(_natural_plane(rng, (1080, 1920))).to(DEVICE)
+    fine = cuda_codec.FINE_LEVELS
+    shown = []
+    for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
+        for levels in (4, 8):
+            n = _device_trace(lambda: cuda_codec.encode_plane(img, levels, _table(preset)))[1]
+            want = 1 if preset == QuantizationLevel.LOSSLESS else 1 + max(levels - fine, 0)
+            _check(n == want, f"K1 {preset.name.lower()} L{levels}: {n} device launches, "
+                              f"{want} expected")
+            shown.append(f"{preset.name.lower()} L{levels} {n:g}")
+    print(f"K1 device launches a call at 1080x1920 (torch.profiler): {', '.join(shown)} "
+          f"[{card}]")
+
+
+def x1_scaling(rng, card: str, chain: dict) -> None:
     """Phase 8, X1 alone: its device time against its rows T and its
-    threads B*L at medium.  A lane codes its T rows in turn, so while the
-    card has idle room the time follows T, not the pixels."""
+    threads B*L at medium, beside its chain bound.  A lane codes its T
+    rows in turn, so while the card has idle room the time follows T, not
+    the pixels."""
     for shape in [(1, 1080, 1920), (1, 2614, 2368), (1, 4096, 4096), (8, 1080, 1920),
                   (32, 1080, 1920)]:
         img = torch.from_numpy(_natural_plane(rng, shape)).to(DEVICE)
@@ -907,10 +1019,11 @@ def x1_scaling(rng, card: str) -> None:
                  else f"{dev:.4f} ms, {sym.numel() / dev / 1e3:.1f} MPix/s")
         by_kernel = ", ".join(
             f"{name} {sum(v for k, v in parts.items() if name in k):.4f}"
-            for name in ("rans_histogram", "rans_normalize", "rans_encode_lanes",
-                         "rans_lane_offsets", "rans_store_words", "Memset"))
+            for name in ("rans_histogram", "rans_normalize", "rans_encode_lanes", "Memset"))
+        bound = (f"{rows * chain['ns_a_row'] / 1e6:.4f} ms" if chain else "not measured")
         print(f"x1-scaling {'x'.join(map(str, shape))} medium: L {lanes}, T {rows}, "
-              f"{shape[0] * lanes} threads: device {shown} ({by_kernel} ms) [{card}]")
+              f"{shape[0] * lanes} threads: device {shown} ({by_kernel} ms); chain bound "
+              f"{bound} [{card}]")
 
 
 def main() -> int:
@@ -930,11 +1043,18 @@ def main() -> int:
     log = lib_path.with_suffix(".log")
     if log.exists():
         print(log.read_text().rstrip())
+        for name, info in chip_probe.ptxas_summary(
+                log.read_text(), ("encode_lossless", "encode_tiles", "encode_level",
+                                  "rans_histogram", "rans_normalize", "rans_encode_lanes")).items():
+            print(f"ptxas {name}: {info}")
     t0 = time.perf_counter()
     _check(native.available(), "the native coders (make -C native) did not build or load")
     print(f"phase native: {os.path.relpath(native.LIB_PATH, ROOT)} ready in "
           f"{time.perf_counter() - t0:.1f} s")
 
+    # Early, while the profiler holds few records: late in a process its
+    # traces drop some (PERF.md section 6).
+    k1_launches(np.random.default_rng([SEED, 1]), card)
     rng = np.random.default_rng(SEED)
     worst = compare_kernels(rng)
     worst.update(compare_fast_kernels(rng))
@@ -989,7 +1109,16 @@ def main() -> int:
           f"(T instr/s): {shown}; the bounds use {peak_ops / 1e12:.3f} T op/s [{card}]")
 
     rows = timings(rng, card, peak_ops)
-    x1_scaling(rng, card)
+    chain = _x1_chain(mhz)
+    if chain:
+        print(f"X1 lanes loop ({chain['function']}): {chain['loop_instructions']} SASS "
+              f"instructions for {X1_ROWS_A_LOOP} rows; dependent chain {chain['chain']} "
+              f"({chain['chain_per_row']:g} a row: {' '.join(chain['chain_opcodes'])}); at 4 "
+              f"cycles each and {mhz:.0f} MHz, {chain['ns_a_row']:.2f} ns a row [{card}]")
+    else:
+        print("X1 lanes loop: cuobjdump not found, chain not measured")
+    x1_scaling(rng, card, chain)
+    sweep(card)
     _check("jax" not in sys.modules, "JAX was imported")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - started:.1f} s")
 
@@ -1004,9 +1133,12 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
         }
-        if kernel == "X1":  # the histogram stage against torch.bincount
+        record["device_launches"] = row["device_launches"]
+        if kernel == "X1":  # the histogram stage against torch.bincount; the chain bound
             record["histogram_device_ms"] = row["histogram_device_ms"]
             record["bincount_ms"] = row["bincount_ms"]
+            t = -(-1080 * 1920 // tpurans.lanes_for(1080 * 1920))
+            record["chain_bound_ms"] = t * chain["ns_a_row"] / 1e6 if chain else None
         kernels.append(record)
     print(json.dumps({"kernels": kernels}))
     print(chip_probe.card())

@@ -19,53 +19,98 @@
 // anchors (hp >> L) x (wp >> L), then per level l, coarsest first, the
 // quads q01, q10, q11 of the level's cells, each (hp >> (L-l)) x
 // (wp >> (L-l)), where hp x wp is the image padded up to multiples of
-// 2^L (the canvas).  K3 runs K1's level loop over every cell of the
-// canvas lattice, so it also emits the residuals of pixels that lie in
-// the padding, where the source reads 0: code(0 - pred), exactly what the
-// JAX encode_subbands and its Pallas kernel emit there.  K5 reads its
+// 2^L (the canvas).  K3 runs the level loop over every cell of the canvas
+// lattice, so it also emits the residuals of pixels that lie in the
+// padding, where the source reads 0: code(0 - pred), exactly what the JAX
+// encode_subbands and its Pallas kernel emit there.  K5 reads its
 // residuals straight from the quads; the TPU's repack-then-decode split
 // buys nothing here, so there is no grid in between.  Stopped after `upto`
 // levels, it writes the preview: the full image sampled every
 // 2^(L-upto) pixels.  K4 is a gather from the quads into the grid.
 //
-// None of the TPU kernels' tiling is carried over: no row tiles or halos,
-// no u32 words or stride-4 planes.  The design follows from two facts:
-//   * a level writes only positions off its `step` lattice and reads only
-//     positions on it, so one launch per level, one thread per cell of the
-//     `step` lattice, is race-free, and launches on one stream order the
-//     levels;
-//   * the three refined pixels (y, x+sub), (y+sub, x), (y+sub, x+sub) of a
-//     cell share one prediction, so a thread reads 4 corners and codes up
-//     to 3 pixels.
-// Each entry point runs its whole level loop on the caller's stream.
+// None of the TPU kernels' tiling is carried over: no row tiles, no u32
+// words or stride-4 planes.  What bounds every kernel here is device
+// memory: a pixel is read once and written once, plus corner reads.
 //
-// What bounds them on this card: device-memory bytes.  Each pixel is read
-// and written about once, plus the corner reads (one extra byte per cell),
-// with no reuse held on chip; the coarse levels are too small to fill the
-// card, but they are 1/4 of the work per level up.  Stride-`step` byte
-// accesses coalesce poorly at the finest levels (the quads themselves are
-// read and written coalesced).  Fusing the finest levels into
-// shared-memory tiles with halos, so that a pixel crosses device memory
-// once in each direction, is later work.
+// K1 has two designs, one for each of its paths:
+//   * lossless (no table): the reconstruction is the source, so no level
+//     depends on another and the whole pyramid is one launch.  A thread
+//     codes a run of kRun pixels of one row; a pixel's level is the lowest
+//     set bit t of y | x (as in K4), its cell's corners are read from the
+//     source, and L1 and L2 serve their reuse.  Specialized on the row's
+//     lowest set bit, a run reads every row its cells touch as one 16-byte
+//     load plus the byte after it; only a column whose level reaches past
+//     the run (1/256 of the pixels) reads its corners one by one.  One
+//     read and one write per pixel: the bytes bound.
+//   * lossy (closed loop): each level predicts from the reconstruction of
+//     the coarser ones.  The finest F = min(L, fine) levels run in one
+//     launch of 2-D tiles in shared memory: a block loads its tile of the
+//     source plus a right and bottom halo of one 2^F cell, and the
+//     reconstruction on the 2^F lattice over the same region; runs the F
+//     levels coarse to fine with a barrier between them, halo cells
+//     included; and writes its own grid and recon pixels once, 16 bytes a
+//     thread.  The halo suffices because a cell at x0 reads corners at x0
+//     and x0 + step only: a tile whose origin lies on the 2^F lattice
+//     needs no left or top halo, and the pixels of its right and bottom
+//     halo cells that its own cells read depend only on those halo cells
+//     and on their 2^F corners.  Halo cells cost their source bytes again
+//     (read from L2 by the neighbour).  Levels coarser than 2^F keep one
+//     launch each of encode_level, one thread per cell; they touch at
+//     most 1/4^F of the pixels, and the first also copies the anchors.
+//     At L <= F the whole encode is one launch.
+//     What bounds a tile on this card is its latency, not bytes: at one
+//     plane a block of each SM runs its phases (load, F levels between
+//     barriers, write) one after another.  So every phase keeps several
+//     reads in flight a thread: the load reads four 16-byte pieces before
+//     storing any, a level codes two cells a round with their reads
+//     before their writes, and the finest level, 3/4 of the cells, runs
+//     on 8-byte words, four cells a thread.
+// The quantizer table reaches every lossy kernel by value, as a 256-byte
+// kernel argument, and each block copies it to shared memory: lookups at
+// indices that differ across a warp then cost no constant-memory replays,
+// and calls on any streams may use any tables at once.
+//
+// K2-K5 keep one launch per level, one thread per cell of the `step`
+// lattice (a level writes only positions off its lattice and reads only
+// positions on it, so a launch per level is race-free), a thread reading
+// 4 corners and coding up to 3 pixels; launches on one stream order the
+// levels.
 //
 // Every effective depth (0..30), every shape including 0x0 and 1xN, both
 // predictors and every quantizer table are covered; offsets are 64-bit,
 // so [B, H, W] batches of any size address correctly.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
+
+// The quantizer table as the C entry points take it, by value.
+struct QTable {
+  uint8_t v[256];
+};
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTileThreads = 256;  // threads of a block of lossy K1's tiles
 constexpr int kMaxGridY = 65535;  // batch planes per launch
 // Dims are at most 2^30 (the wrapper checks), so depths stop at 30.
 constexpr int kMaxLevels = 31;
-
-// The quantizer: q = c_table[diff].  Only the lossy encode reads it.
-__constant__ uint8_t c_table[256];
+constexpr int kRun = 16;          // pixels of a row a lossless K1 thread codes
+constexpr int kMaxFine = 5;       // the tiled levels of lossy K1 at most
+constexpr int kMaxSharedBytes = 227 * 1024;
 
 enum Predictor { kCrossed = 0, kLeftTop = 1 };
+
+// The prediction of a cell from its corners: the exact integer rounding
+// tree of interpolator.rs:41-55, in int (the sum reaches 1020), or the top
+// left corner.
+template <int PRED>
+__device__ __forceinline__ int tree(int tl, int tr, int bl, int br) {
+  if (PRED == kLeftTop) return tl;
+  return (((tl + tr + 1) >> 1) + ((bl + br + 1) >> 1) + ((tl + bl + 1) >> 1) +
+          ((tr + br + 1) >> 1)) >> 2;
+}
 
 // Prediction of the cell whose top-left corner is (y0, x0), side `step`,
 // read from plane `p` of h x w; corners outside the plane read 0
@@ -75,7 +120,7 @@ template <int PRED>
 __device__ __forceinline__ int cell_prediction(const uint8_t* p, int h, int w,
                                                int y0, int x0, int step) {
   // Only K3 visits cells whose top-left corner lies outside the plane (in
-  // the canvas padding); for K1, K2 and K5 `top` and `left` always hold.
+  // the canvas padding); elsewhere `top` and `left` always hold.
   const bool top = y0 < h;
   const bool left = x0 < w;
   const bool right = step < w - x0;  // implies left
@@ -87,32 +132,37 @@ __device__ __forceinline__ int cell_prediction(const uint8_t* p, int h, int w,
   const int tr = (top && right) ? p[r0 + step] : 0;
   const int bl = (down && left) ? p[r1] : 0;
   const int br = (right && down) ? p[r1 + step] : 0;
-  // The exact integer rounding tree of interpolator.rs:41-55, in int: the
-  // sum reaches 1020.
-  return (((tl + tr + 1) >> 1) + ((bl + br + 1) >> 1) + ((tl + bl + 1) >> 1) +
-          ((tr + br + 1) >> 1)) >> 2;
+  return tree<PRED>(tl, tr, bl, br);
 }
 
 // The coded residual of value v under prediction pred: one closed-loop
-// residual step (encoder.rs:53-64).
+// residual step (encoder.rs:53-64), the table `qt` in shared memory.
 template <bool LOSSLESS>
-__device__ __forceinline__ int residual(int v, int pred) {
+__device__ __forceinline__ int residual(int v, int pred, const uint8_t* qt) {
   const int diff = (v - pred) & 255;
   if (LOSSLESS) return diff;
-  const int q = c_table[diff];
+  const int q = qt[diff];
   // The fixup compares the carries as integers: store the raw diff when
   // quantizing flips whether pred + residual passes 255.
   return ((pred + q > 255) != (pred + diff > 255)) ? diff : q;
 }
 
-// Codes the pixel at offset k into the grid (and the recon when lossy).
-template <bool LOSSLESS>
-__device__ __forceinline__ void code(const uint8_t* __restrict__ src,
-                                     uint8_t* __restrict__ grid,
-                                     uint8_t* recon, long long k, int pred) {
-  const int g = residual<LOSSLESS>(src[k], pred);
-  grid[k] = (uint8_t)g;
-  if (!LOSSLESS) recon[k] = (uint8_t)((pred + g) & 255);
+// The table as the kernels take it, a 256-byte argument on a 16-byte
+// boundary, so that 16 threads copy it to shared memory, 16 bytes each.
+struct alignas(16) KTable {
+  uint4 v[16];
+};
+
+KTable ktable(const QTable& table) {
+  KTable k;
+  memcpy(&k, table.v, sizeof k);
+  return k;
+}
+
+// The first 16 threads copy the table to `qt` (16-byte aligned shared
+// memory); the caller synchronizes.
+__device__ __forceinline__ void load_table(uint8_t* qt, const KTable& table) {
+  if (threadIdx.x < 16) reinterpret_cast<uint4*>(qt)[threadIdx.x] = table.v[threadIdx.x];
 }
 
 // Anchors: dst0[k] = dst1[k] = src[k] on the `step` lattice (dst1 may be
@@ -131,30 +181,428 @@ __global__ void copy_anchors(const uint8_t* __restrict__ src,
   if (dst1 != nullptr) dst1[k] = v;
 }
 
-// K1, one level.  Lossless reads the corners from the source (the
-// reconstruction equals it) and writes no recon.
-template <int PRED, bool LOSSLESS>
-__global__ void encode_level(const uint8_t* __restrict__ src,
-                             uint8_t* __restrict__ grid, uint8_t* recon, int h,
-                             int w, int step, int wc, long long cells) {
+// -- K1, lossless: the whole pyramid in one launch ---------------------------
+
+// The lossless residual of pixel (y, x) of plane p: its level from the
+// lowest set bit t of y | x (t >= levels, or y = x = 0: an anchor, stored
+// raw); the corners of its cell, of side 2^(t+1), read from the source.
+template <int PRED>
+__device__ __forceinline__ uint32_t lossless_pixel(const uint8_t* __restrict__ p, int h,
+                                                   int w, int y, int x, int levels) {
+  const int yx = y | x;
+  const int t = yx == 0 ? levels : min(__ffs(yx) - 1, levels);
+  const int v = p[(long long)y * w + x];
+  if (t >= levels) return (uint32_t)v;
+  const int step = 2 << t;
+  return (uint32_t)((v - cell_prediction<PRED>(p, h, w, y & -step, x & -step, step)) & 255);
+}
+
+// kRun bytes as four little-endian words: one 16-byte load, or byte by byte.
+template <bool VEC>
+__device__ __forceinline__ void load_run(uint32_t (&r)[4], const uint8_t* p) {
+  if (VEC) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      r[i] = (uint32_t)p[4 * i] | (uint32_t)p[4 * i + 1] << 8 |
+             (uint32_t)p[4 * i + 2] << 16 | (uint32_t)p[4 * i + 3] << 24;
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store_run(uint8_t* p, const uint32_t (&r)[4]) {
+  if (VEC) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(r[0], r[1], r[2], r[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) p[j] = (uint8_t)(r[j >> 2] >> (8 * (j & 3)));
+  }
+}
+
+__device__ __forceinline__ int byte_of(const uint32_t (&r)[4], int j) {
+  return (int)((r[j >> 2] >> (8 * (j & 3))) & 255u);
+}
+
+// The rows a run reads, as offsets from its own row: slot i holds row
+// y + kRowOffset[i].
+__host__ __device__ constexpr int row_offset(int slot) {
+  return slot < 4 ? -(8 >> slot) : (slot == 4 ? 0 : 1 << (slot - 5));  // -8..-1, 0, 1..16
+}
+__host__ __device__ constexpr int row_slot(int d) {
+  return d < 0 ? (d == -8 ? 0 : d == -4 ? 1 : d == -2 ? 2 : 3)
+               : (d == 0 ? 4 : d == 1 ? 5 : d == 2 ? 6 : d == 4 ? 7 : d == 8 ? 8 : 9);
+}
+constexpr int kRowSlots = 10;
+
+__host__ __device__ constexpr int ctz16(int j) {
+  return (j & 1) ? 0 : (j & 2) ? 1 : (j & 4) ? 2 : 3;
+}
+
+// The level of in-run column j (1..15) of a row whose lowest set bit is TY
+// (TY == 4: four or more), and of column 0 when TY < 4 (the run's origin
+// is a multiple of 16).
+__host__ __device__ constexpr int run_level(int TY, int j) {
+  return TY == 0 ? 0 : j == 0 ? TY : (ctz16(j) < TY ? ctz16(j) : TY);
+}
+
+// The row offsets of the corners of column j's cell: (y, y + 2s) when its
+// level t lies below the row's (the cell starts on this row), else
+// (y - s, y + s), with s = 2^t.
+__host__ __device__ constexpr int top_offset(int TY, int j) {
+  return (TY == 4 || run_level(TY, j) < TY) ? 0 : -(1 << run_level(TY, j));
+}
+
+__host__ __device__ constexpr bool reads_row(int TY, int d) {
+  bool used = d == 0;
+  for (int j = (TY == 4 ? 1 : 0); j < kRun; ++j) {
+    const int top = top_offset(TY, j), step = 2 << run_level(TY, j);
+    used = used || d == top || d == top + step;
+  }
+  return used;
+}
+
+// A run of kRun pixels of row y (lowest set bit TY) starting at column x0,
+// kRun <= w - x0: every row its cells read is one 16-byte load (zero below
+// the plane) plus the byte after it (zero past the plane's right edge); at
+// TY == 4 column 0, whose cell may reach beyond the run, reads its corners
+// one by one.
+template <int PRED, bool VEC, int TY>
+__device__ __forceinline__ void lossless_run(const uint8_t* __restrict__ p, uint8_t* __restrict__ g,
+                                             int h, int w, int y, int x0, int levels, long long k) {
+  const bool right = x0 + kRun < w;
+  uint32_t rows[kRowSlots][4];
+  int ends[kRowSlots];
+#pragma unroll
+  for (int i = 0; i < kRowSlots; ++i) {
+    if (!reads_row(TY, row_offset(i))) continue;
+    const int d = row_offset(i);
+    if (y + d < h) {
+      const uint8_t* q = p + k + (long long)d * w;
+      load_run<VEC>(rows[i], q);
+      ends[i] = right ? q[kRun] : 0;
+    } else {
+      rows[i][0] = rows[i][1] = rows[i][2] = rows[i][3] = 0u;
+      ends[i] = 0;
+    }
+  }
+  const uint32_t(&own)[4] = rows[row_slot(0)];
+  uint32_t out[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    uint32_t r;
+    if (TY == 4 && j == 0) {
+      r = lossless_pixel<PRED>(p, h, w, y, x0, levels);
+    } else {
+      const int t = run_level(TY, j), step = 2 << t, c0 = j & -step;
+      const int top = row_slot(top_offset(TY, j)), bot = row_slot(top_offset(TY, j) + step);
+      const int pred = tree<PRED>(byte_of(rows[top], c0),
+                                  c0 + step < kRun ? byte_of(rows[top], c0 + step) : ends[top],
+                                  byte_of(rows[bot], c0),
+                                  c0 + step < kRun ? byte_of(rows[bot], c0 + step) : ends[bot]);
+      const int v = byte_of(own, j);
+      r = (uint32_t)(t >= levels ? v : (v - pred) & 255);
+    }
+    out[j >> 2] |= r << (8 * (j & 3));
+  }
+  store_run<VEC>(g + k, out);
+}
+
+// One thread per run of kRun pixels of a row; `runs` runs a row, `total`
+// runs in all (batch * h * runs).  VEC: w % 16 == 0 and both buffers on
+// 16-byte boundaries.
+template <int PRED, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    encode_lossless(const uint8_t* __restrict__ src, uint8_t* __restrict__ grid, int h,
+                    int w, int levels, int runs, long long total) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= total) return;
+  const long long row = i / runs;
+  const int x0 = (int)(i - row * runs) * kRun;
+  const long long b = row / h;
+  const int y = (int)(row - b * h);
+  const long long plane = b * h * (long long)w;
+  const uint8_t* p = src + plane;
+  uint8_t* g = grid + plane;
+  const long long k = (long long)y * w + x0;
+  if (levels == 0 || x0 + kRun > w) {  // no levels, or a row's ragged end
+    const int m = min(kRun, w - x0);
+    for (int j = 0; j < m; ++j) g[k + j] = (uint8_t)lossless_pixel<PRED>(p, h, w, y, x0 + j, levels);
+    return;
+  }
+  switch (y == 0 ? 4 : min(__ffs(y) - 1, 4)) {
+    case 0: lossless_run<PRED, VEC, 0>(p, g, h, w, y, x0, levels, k); break;
+    case 1: lossless_run<PRED, VEC, 1>(p, g, h, w, y, x0, levels, k); break;
+    case 2: lossless_run<PRED, VEC, 2>(p, g, h, w, y, x0, levels, k); break;
+    case 3: lossless_run<PRED, VEC, 3>(p, g, h, w, y, x0, levels, k); break;
+    default: lossless_run<PRED, VEC, 4>(p, g, h, w, y, x0, levels, k); break;
+  }
+}
+
+// -- K1, lossy: coarse levels one launch each, the finest F tiled -------------
+
+// One coarse level: one thread per cell of the `step` lattice codes its up
+// to 3 refined pixels.  The first level (`anchors`) also stores the
+// anchors, its cells' top-left corners, raw, and reads its corners from
+// the source, which the anchors' reconstruction equals.
+template <int PRED>
+__global__ void encode_level(const uint8_t* __restrict__ src, uint8_t* __restrict__ grid,
+                             uint8_t* __restrict__ recon, KTable table, int h, int w,
+                             int step, int wc, long long cells, bool anchors) {
+  __shared__ __align__(16) uint8_t qt[256];
+  load_table(qt, table);
+  __syncthreads();
   const long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (cell >= cells) return;
   const long long plane = (long long)blockIdx.y * h * w;
   src += plane;
   grid += plane;
-  if (!LOSSLESS) recon += plane;
+  recon += plane;
   const int y0 = (int)(cell / wc) * step;
   const int x0 = (int)(cell % wc) * step;
   const int sub = step >> 1;
-  const int pred =
-      cell_prediction<PRED>(LOSSLESS ? src : recon, h, w, y0, x0, step);
+  const long long k = (long long)y0 * w + x0;
+  if (anchors) {
+    const uint8_t v = src[k];
+    grid[k] = v;
+    recon[k] = v;
+  }
+  const int pred = cell_prediction<PRED>(anchors ? src : recon, h, w, y0, x0, step);
   const bool right = sub < w - x0;
   const bool down = sub < h - y0;
-  const long long k = (long long)y0 * w + x0;
-  if (right) code<LOSSLESS>(src, grid, recon, k + sub, pred);
-  if (down) code<LOSSLESS>(src, grid, recon, k + (long long)sub * w, pred);
-  if (right && down)
-    code<LOSSLESS>(src, grid, recon, k + (long long)sub * w + sub, pred);
+  const long long ks[3] = {k + sub, k + (long long)sub * w, k + (long long)sub * w + sub};
+  const bool in[3] = {right, down, right && down};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    if (!in[i]) continue;
+    const int g = residual<false>(src[ks[i]], pred, qt);
+    grid[ks[i]] = (uint8_t)g;
+    recon[ks[i]] = (uint8_t)((pred + g) & 255);
+  }
+}
+
+__host__ __device__ __forceinline__ int round16(int v) { return (v + 15) & ~15; }
+
+// The tiled launch's shared memory: the table, then the reconstruction and
+// the source (then residuals) over the tile and its halo, rows 0..th + S
+// and columns 0..tw + S (S = 2^fine), each row round16(tw + S + 1) bytes.
+__host__ __device__ __forceinline__ int tile_shared_bytes(int th, int tw, int fine) {
+  const int s = 1 << fine;
+  return 256 + 2 * (th + s + 1) * round16(tw + s + 1);
+}
+
+// A block's walk over the (row, column) cells of a grid `cols` wide
+// (cols <= 2^12), cell threadIdx.x first and kTileThreads cells a step,
+// without an integer division: a quotient below 2^9 by a float reciprocal
+// is exact, since (i + 0.5) / cols stays 1 / (2 cols) from an integer.
+struct Walk {
+  int r, c, dr, dc, cols;
+  __device__ explicit Walk(int cols_) : cols(cols_) {
+    const float inv = 1.0f / (float)cols;
+    r = (int)(((float)threadIdx.x + 0.5f) * inv);
+    c = threadIdx.x - r * cols;
+    dr = (int)(((float)kTileThreads + 0.5f) * inv);
+    dc = kTileThreads - dr * cols;
+  }
+  __device__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+};
+
+__device__ __forceinline__ int byte8(const uint32_t (&r)[2], int j) {
+  return (int)((r[j >> 2] >> (8 * (j & 3))) & 255u);
+}
+
+__device__ __forceinline__ void set_byte8(uint32_t (&r)[2], int j, int v) {
+  const int sh = 8 * (j & 3);
+  r[j >> 2] = (r[j >> 2] & ~(255u << sh)) | ((uint32_t)(v & 255) << sh);
+}
+
+// Level step 2 of a tile (reconstruction rc, source then residuals sc,
+// rows `pitch` bytes apart, rh x rw cells' worth) whose coded pixels all
+// lie inside the plane: a thread codes 4 cells of a row pair, 8 columns,
+// from 8-byte words.  Row ly's even bytes are the corners and keep their
+// values, so a neighbour reading them while the word is rewritten reads
+// the same bytes.
+template <int PRED>
+__device__ __forceinline__ void finest_level_words(uint8_t* rc, uint8_t* sc, int pitch,
+                                                   int rh, int rw, const uint8_t* qt) {
+  for (Walk it(rw / 8); it.r < rh / 2; it.next()) {
+    const int o = 2 * it.r * pitch + 8 * it.c;
+    uint8_t* top = rc + o;
+    const uint2 ta = *reinterpret_cast<const uint2*>(top);
+    const uint2 ba = *reinterpret_cast<const uint2*>(top + 2 * pitch);
+    const int t8 = top[8], b8 = top[2 * pitch + 8];
+    const uint2 s0 = *reinterpret_cast<const uint2*>(sc + o);
+    const uint2 s1 = *reinterpret_cast<const uint2*>(sc + o + pitch);
+    const uint32_t t[2] = {ta.x, ta.y}, bt[2] = {ba.x, ba.y};
+    const uint32_t v0[2] = {s0.x, s0.y}, v1[2] = {s1.x, s1.y};
+    uint32_t r0[2] = {ta.x, ta.y}, r1[2] = {0u, 0u}, g0[2] = {s0.x, s0.y}, g1[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; i += 2) {
+      const int pred = tree<PRED>(byte8(t, i), i < 6 ? byte8(t, i + 2) : t8, byte8(bt, i),
+                                  i < 6 ? byte8(bt, i + 2) : b8);
+      const int g01 = residual<false>(byte8(v0, i + 1), pred, qt);
+      const int g10 = residual<false>(byte8(v1, i), pred, qt);
+      const int g11 = residual<false>(byte8(v1, i + 1), pred, qt);
+      set_byte8(g0, i + 1, g01);
+      set_byte8(r0, i + 1, pred + g01);
+      set_byte8(g1, i, g10);
+      set_byte8(r1, i, pred + g10);
+      set_byte8(g1, i + 1, g11);
+      set_byte8(r1, i + 1, pred + g11);
+    }
+    *reinterpret_cast<uint2*>(top) = make_uint2(r0[0], r0[1]);
+    *reinterpret_cast<uint2*>(top + pitch) = make_uint2(r1[0], r1[1]);
+    *reinterpret_cast<uint2*>(sc + o) = make_uint2(g0[0], g0[1]);
+    *reinterpret_cast<uint2*>(sc + o + pitch) = make_uint2(g1[0], g1[1]);
+  }
+}
+
+// The finest `fine` levels of one th x tw tile (blockIdx.x; tiles_x a row
+// of tiles) of plane blockIdx.y, th and tw multiples of 16 and of 2^fine.
+// `coarse`: coarser levels ran before, so the 2^fine lattice holds their
+// reconstruction and grid; otherwise it is the anchors, the source.  VEC:
+// w % 16 == 0 and every buffer on a 16-byte boundary.
+template <int PRED, bool VEC>
+__global__ void __launch_bounds__(kTileThreads)
+    encode_tiles(const uint8_t* __restrict__ src, uint8_t* __restrict__ grid,
+                 uint8_t* __restrict__ recon, KTable table, int h, int w, int fine,
+                 bool coarse, int th, int tw, int tiles_x) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int S = 1 << fine;
+  const int rh = th + S, rw = tw + S;  // the tile and its halo; rows and columns 0..rh, 0..rw
+  const int pitch = round16(rw + 1);
+  uint8_t* qt = smem;
+  uint8_t* rc = smem + 256;           // reconstruction
+  uint8_t* sc = rc + (rh + 1) * pitch;  // source, then residuals
+  const long long plane = (long long)blockIdx.y * h * w;
+  src += plane;
+  grid += plane;
+  recon += plane;
+  const int y0 = (int)(blockIdx.x / tiles_x) * th;
+  const int x0 = (int)(blockIdx.x % tiles_x) * tw;
+
+  load_table(qt, table);
+  // The source, 16 bytes a thread; a position outside the plane reads 0,
+  // and the reconstruction is 0 until a level writes it.
+  const int pieces = pitch / 16;
+  for (Walk it(pieces); it.r <= rh;) {
+    // Four pieces a round, all read before any is stored, so the reads'
+    // latencies overlap.
+    uint4 v[4];
+    int o[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u, it.next()) {
+      o[u] = -1;
+      if (it.r > rh) continue;
+      const int gy = y0 + it.r, gx = x0 + 16 * it.c;
+      o[u] = it.r * pitch + 16 * it.c;
+      const long long k = (long long)gy * w + gx;
+      if (VEC && gy < h && gx + 16 <= w) {
+        v[u] = *reinterpret_cast<const uint4*>(src + k);
+      } else {
+        uint32_t b[4] = {0u, 0u, 0u, 0u};
+        for (int j = 0; j < 16; ++j)
+          if (gy < h && gx + j < w) b[j >> 2] |= (uint32_t)src[k + j] << (8 * (j & 3));
+        v[u] = make_uint4(b[0], b[1], b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (o[u] < 0) continue;
+      *reinterpret_cast<uint4*>(rc + o[u]) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(sc + o[u]) = v[u];
+    }
+  }
+  __syncthreads();
+  // The 2^fine lattice over the region, edges included.  After coarser
+  // levels it is their reconstruction, and their grid values replace the
+  // source at the tile's own lattice points, so that the final write keeps
+  // them; otherwise it is the anchors.
+  for (Walk it(rw / S + 1); it.r <= rh / S; it.next()) {
+    const int r = it.r * S, c = it.c * S;
+    const int gy = y0 + r, gx = x0 + c;
+    if (gy >= h || gx >= w) continue;
+    const int o = r * pitch + c;
+    if (coarse) {
+      const long long k = (long long)gy * w + gx;
+      rc[o] = recon[k];
+      if (r < th && c < tw) sc[o] = grid[k];
+    } else {
+      rc[o] = sc[o];
+    }
+  }
+  __syncthreads();
+  // The finest level of a tile whose halo lies inside the plane, in
+  // 8-byte words (3/4 of the cells); every other level cell by cell.
+  const bool words = S >= 8 && y0 + rh <= h && x0 + rw <= w;
+  for (int step = S; step >= (words ? 4 : 2); step >>= 1) {
+    const int sub = step >> 1;
+    const int rows = rh / step;
+    for (Walk it(rw / step); it.r < rows;) {
+      // Two cells a round: their reads before their writes (the cells'
+      // pixels are distinct and none is a corner of this level), so the
+      // latencies of both overlap.
+      int pred[2], o[2][3], v[2][3];
+      bool in[2][3];
+#pragma unroll
+      for (int u = 0; u < 2; ++u, it.next()) {
+        const bool cell = it.r < rows;
+        const int ly = cell ? it.r * step : 0, lx = cell ? it.c * step : 0;
+        const uint8_t* c0 = rc + ly * pitch + lx;
+        pred[u] = tree<PRED>(c0[0], c0[step], c0[step * pitch], c0[step * pitch + step]);
+        const bool right = x0 + lx + sub < w, down = y0 + ly + sub < h;
+        o[u][0] = ly * pitch + lx + sub;
+        o[u][1] = (ly + sub) * pitch + lx;
+        o[u][2] = (ly + sub) * pitch + lx + sub;
+        in[u][0] = cell && right && y0 + ly < h;
+        in[u][1] = cell && down && x0 + lx < w;
+        in[u][2] = cell && right && down;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) v[u][j] = sc[o[u][j]];
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) v[u][j] = residual<false>(v[u][j], pred[u], qt);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          if (!in[u][j]) continue;  // outside the plane, or no cell
+          sc[o[u][j]] = (uint8_t)v[u][j];
+          rc[o[u][j]] = (uint8_t)((pred[u] + v[u][j]) & 255);
+        }
+    }
+    __syncthreads();
+  }
+  if (words) {
+    finest_level_words<PRED>(rc, sc, pitch, rh, rw, qt);
+    __syncthreads();
+  }
+  // The tile's own pixels, 16 bytes a thread where they lie whole.
+  for (Walk it(tw / 16); it.r < th; it.next()) {
+    const int gy = y0 + it.r, gx = x0 + 16 * it.c;
+    if (gy >= h || gx >= w) continue;
+    const long long k = (long long)gy * w + gx;
+    const int o = it.r * pitch + 16 * it.c;
+    if (VEC && gx + 16 <= w) {
+      *reinterpret_cast<uint4*>(grid + k) = *reinterpret_cast<const uint4*>(sc + o);
+      *reinterpret_cast<uint4*>(recon + k) = *reinterpret_cast<const uint4*>(rc + o);
+    } else {
+      for (int j = 0; j < 16 && gx + j < w; ++j) {
+        grid[k + j] = sc[o + j];
+        recon[k + j] = rc[o + j];
+      }
+    }
+  }
 }
 
 // K2, one level.
@@ -216,8 +664,8 @@ template <bool LOSSLESS>
 __device__ __forceinline__ void emit(const uint8_t* __restrict__ src,
                                      uint8_t* recon, uint8_t* __restrict__ quad,
                                      long long qk, bool inside, long long k,
-                                     int pred) {
-  const int g = residual<LOSSLESS>(inside ? src[k] : 0, pred);
+                                     int pred, const uint8_t* qt) {
+  const int g = residual<LOSSLESS>(inside ? src[k] : 0, pred, qt);
   quad[qk] = (uint8_t)g;
   if (!LOSSLESS && inside) recon[k] = (uint8_t)((pred + g) & 255);
 }
@@ -231,8 +679,13 @@ template <int PRED, bool LOSSLESS>
 __global__ void encode_sub_level(const uint8_t* __restrict__ src,
                                  uint8_t* recon, uint8_t* __restrict__ q01,
                                  uint8_t* __restrict__ q10,
-                                 uint8_t* __restrict__ q11, int h, int w,
-                                 int step, int qw, long long cells) {
+                                 uint8_t* __restrict__ q11, KTable table, int h,
+                                 int w, int step, int qw, long long cells) {
+  __shared__ __align__(16) uint8_t qt[256];
+  if (!LOSSLESS) {
+    load_table(qt, table);
+    __syncthreads();
+  }
   const long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (cell >= cells) return;
   const long long plane = (long long)blockIdx.y * h * w;
@@ -250,9 +703,9 @@ __global__ void encode_sub_level(const uint8_t* __restrict__ src,
   const bool down = sub < h - y0;
   const long long k = (long long)y0 * w + x0;
   const long long kd = k + (long long)sub * w;
-  emit<LOSSLESS>(src, recon, q01, qk, top && right, k + sub, pred);
-  emit<LOSSLESS>(src, recon, q10, qk, down && left, kd, pred);
-  emit<LOSSLESS>(src, recon, q11, qk, down && right, kd + sub, pred);
+  emit<LOSSLESS>(src, recon, q01, qk, top && right, k + sub, pred, qt);
+  emit<LOSSLESS>(src, recon, q10, qk, down && left, kd, pred, qt);
+  emit<LOSSLESS>(src, recon, q11, qk, down && right, kd + sub, pred, qt);
 }
 
 // K5, one level: K2's decode_level with the residuals read from the quads
@@ -346,23 +799,58 @@ cudaError_t over_batch(int batch, F launch) {
   return cudaSuccess;
 }
 
-template <int PRED, bool LOSSLESS>
-cudaError_t encode_levels(const uint8_t* src, uint8_t* grid, uint8_t* recon,
-                          int batch, int h, int w, int levels,
-                          cudaStream_t stream) {
+// K1 lossless: one launch, one thread per run of kRun pixels of a row.
+template <int PRED>
+cudaError_t encode_lossless_all(const uint8_t* src, uint8_t* grid, int batch, int h,
+                                int w, int levels, bool vec, cudaStream_t stream) {
+  const int runs = (int)cdiv(w, kRun);
+  const long long total = (long long)batch * h * runs;
+  const long long blocks = cdiv(total, kThreads);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (vec)
+    encode_lossless<PRED, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        src, grid, h, w, levels, runs, total);
+  else
+    encode_lossless<PRED, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        src, grid, h, w, levels, runs, total);
+  return cudaGetLastError();
+}
+
+// K1 lossy: the levels coarser than 2^F one launch each (the first also
+// storing the anchors), then the finest F = min(levels, fine) in one
+// launch of th x tw tiles.
+template <int PRED>
+cudaError_t encode_lossy_all(const uint8_t* src, uint8_t* grid, uint8_t* recon,
+                             const KTable& table, int batch, int h, int w, int levels,
+                             int th, int tw, int fine, bool vec, cudaStream_t stream) {
   const long long plane = (long long)h * w;
-  for (int level = 0; level < levels; ++level) {
+  const int f = levels < fine ? levels : fine;
+  const int coarse = levels - f;
+  for (int level = 0; level < coarse; ++level) {
     const int step = 1 << (levels - level);
     const Lattice lat(h, w, step);
     const cudaError_t err = over_batch(batch, [&](int b0, int nb) {
-      encode_level<PRED, LOSSLESS><<<dim3(lat.blocks(), nb), kThreads, 0, stream>>>(
-          src + b0 * plane, grid + b0 * plane,
-          LOSSLESS ? nullptr : recon + b0 * plane, h, w, step, lat.wc,
-          lat.cells);
+      encode_level<PRED><<<dim3(lat.blocks(), nb), kThreads, 0, stream>>>(
+          src + b0 * plane, grid + b0 * plane, recon + b0 * plane, table, h, w, step,
+          lat.wc, lat.cells, level == 0);
     });
     if (err != cudaSuccess) return err;
   }
-  return cudaSuccess;
+  const int smem = tile_shared_bytes(th, tw, f);
+  const int tiles_x = (int)cdiv(w, tw);
+  const long long tiles = cdiv(h, th) * tiles_x;
+  if (smem > kMaxSharedBytes || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kernel = vec ? encode_tiles<PRED, true> : encode_tiles<PRED, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  return over_batch(batch, [&](int b0, int nb) {
+    kernel<<<dim3((unsigned)tiles, nb), kTileThreads, smem, stream>>>(
+        src + b0 * plane, grid + b0 * plane, recon + b0 * plane, table, h, w, f,
+        coarse > 0, th, tw, tiles_x);
+  });
 }
 
 template <int PRED>
@@ -398,8 +886,8 @@ cudaError_t anchors(const uint8_t* src, uint8_t* dst0, uint8_t* dst1, int batch,
 // cells of side 2^(levels-l).
 template <int PRED, bool LOSSLESS>
 cudaError_t encode_sub_levels(const uint8_t* src, uint8_t* const* quads,
-                              uint8_t* recon, int batch, int h, int w,
-                              int levels, int ah, int aw,
+                              uint8_t* recon, const KTable& table, int batch, int h,
+                              int w, int levels, int ah, int aw,
                               cudaStream_t stream) {
   const long long plane = (long long)h * w;
   for (int level = 0; level < levels; ++level) {
@@ -412,7 +900,7 @@ cudaError_t encode_sub_levels(const uint8_t* src, uint8_t* const* quads,
       encode_sub_level<PRED, LOSSLESS>
           <<<dim3(blocks_for(cells), nb), kThreads, 0, stream>>>(
               src + b0 * plane, LOSSLESS ? nullptr : recon + b0 * plane,
-              q[0] + qo, q[1] + qo, q[2] + qo, h, w, step, qw, cells);
+              q[0] + qo, q[1] + qo, q[2] + qo, table, h, w, step, qw, cells);
     });
     if (err != cudaSuccess) return err;
   }
@@ -449,34 +937,41 @@ cudaError_t decode_sub_levels(const uint8_t* const* quads, uint8_t* out,
 extern "C" {
 
 // K1: src, grid (and recon when lossy) are [batch, h, w] uint8 device
-// buffers; `table` is a host pointer to the 256-entry quantizer table, or
-// null for the lossless path (then `recon` is unused).  `levels` is the
-// effective depth.  Returns cudaGetLastError() after the last launch.
-int hgi_encode(const void* src, void* grid, void* recon, const void* table,
-               int batch, int h, int w, int levels, int predictor,
-               void* stream) {
+// buffers; `table` is the 256-entry quantizer table, by value, read only
+// when `lossy` (else recon is unused).  `levels` is the effective depth;
+// the lossy path tiles its finest min(levels, fine) levels in th x tw
+// tiles (multiples of 16 and of 2^fine, fine <= 5).  Returns
+// cudaGetLastError() after the last launch.
+int hgi_encode(const void* src, void* grid, void* recon, QTable table, int lossy,
+               int batch, int h, int w, int levels, int predictor, int th, int tw,
+               int fine, void* stream) {
   const auto* s = static_cast<const uint8_t*>(src);
   auto* g = static_cast<uint8_t*>(grid);
   auto* r = static_cast<uint8_t*>(recon);
   auto st = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || h <= 0 || w <= 0) return cudaSuccess;
-  if (predictor != kCrossed && predictor != kLeftTop)
+  if ((predictor != kCrossed && predictor != kLeftTop) || levels < 0 ||
+      levels >= kMaxLevels)
     return cudaErrorInvalidValue;
-  const bool lossless = table == nullptr;
-  if (!lossless) {
-    // Ordered on the stream before this call's launches.
-    const cudaError_t err = cudaMemcpyToSymbolAsync(
-        c_table, table, 256, 0, cudaMemcpyHostToDevice, st);
-    if (err != cudaSuccess) return err;
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (!lossy) {
+    const bool vec = w % 16 == 0 && aligned(s) && aligned(g);
+    return predictor == kCrossed
+               ? encode_lossless_all<kCrossed>(s, g, batch, h, w, levels, vec, st)
+               : encode_lossless_all<kLeftTop>(s, g, batch, h, w, levels, vec, st);
   }
-  cudaError_t err = anchors(s, g, lossless ? nullptr : r, batch, h, w, levels, st);
-  if (err != cudaSuccess) return err;
-  if (predictor == kCrossed)
-    err = lossless ? encode_levels<kCrossed, true>(s, g, r, batch, h, w, levels, st)
-                   : encode_levels<kCrossed, false>(s, g, r, batch, h, w, levels, st);
-  else
-    err = lossless ? encode_levels<kLeftTop, true>(s, g, r, batch, h, w, levels, st)
-                   : encode_levels<kLeftTop, false>(s, g, r, batch, h, w, levels, st);
+  if (fine < 0 || fine > kMaxFine || th <= 0 || tw <= 0 || th % 16 || tw % 16 ||
+      th % (1 << fine) || tw % (1 << fine))
+    return cudaErrorInvalidValue;
+  const bool vec = w % 16 == 0 && aligned(s) && aligned(g) && aligned(r);
+  const cudaError_t err =
+      predictor == kCrossed
+          ? encode_lossy_all<kCrossed>(s, g, r, ktable(table), batch, h, w, levels, th, tw,
+                                       fine, vec, st)
+          : encode_lossy_all<kLeftTop>(s, g, r, ktable(table), batch, h, w, levels, th, tw,
+                                       fine, vec, st);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -500,12 +995,12 @@ int hgi_decode(const void* grid, void* out, int batch, int h, int w,
 }
 
 // K3: src and recon are [batch, h, w] uint8 device buffers (recon only
-// when lossy: `table` not null); anchors is [batch, ceil(h/2^L),
-// ceil(w/2^L)] and quads a host array of 3*levels device pointers, level
-// l's q01, q10, q11 each [batch, ceil(h/2^L) << l, ceil(w/2^L) << l].
-// `levels` is the effective depth.
+// when `lossy`, which also reads `table`, by value); anchors is [batch,
+// ceil(h/2^L), ceil(w/2^L)] and quads a host array of 3*levels device
+// pointers, level l's q01, q10, q11 each [batch, ceil(h/2^L) << l,
+// ceil(w/2^L) << l].  `levels` is the effective depth.
 int hgi_encode_subbands(const void* src, void* anchors, void* const* quads,
-                        void* recon, const void* table, int batch, int h,
+                        void* recon, QTable table, int lossy, int batch, int h,
                         int w, int levels, int predictor, void* stream) {
   const auto* s = static_cast<const uint8_t*>(src);
   auto* a = static_cast<uint8_t*>(anchors);
@@ -516,12 +1011,7 @@ int hgi_encode_subbands(const void* src, void* anchors, void* const* quads,
   if ((predictor != kCrossed && predictor != kLeftTop) || levels < 0 ||
       levels >= kMaxLevels)
     return cudaErrorInvalidValue;
-  const bool lossless = table == nullptr;
-  if (!lossless) {
-    const cudaError_t err = cudaMemcpyToSymbolAsync(
-        c_table, table, 256, 0, cudaMemcpyHostToDevice, st);
-    if (err != cudaSuccess) return err;
-  }
+  const bool lossless = !lossy;
   const long long plane = (long long)h * w;
   const Lattice alat(h, w, 1 << levels);
   cudaError_t err = over_batch(batch, [&](int b0, int nb) {
@@ -533,12 +1023,13 @@ int hgi_encode_subbands(const void* src, void* anchors, void* const* quads,
   if (err != cudaSuccess) return err;
   const int ah = (int)cdiv(h, 1LL << levels);
   const int aw = alat.wc;
+  const KTable kt = ktable(table);
   if (predictor == kCrossed)
-    err = lossless ? encode_sub_levels<kCrossed, true>(s, q, r, batch, h, w, levels, ah, aw, st)
-                   : encode_sub_levels<kCrossed, false>(s, q, r, batch, h, w, levels, ah, aw, st);
+    err = lossless ? encode_sub_levels<kCrossed, true>(s, q, r, kt, batch, h, w, levels, ah, aw, st)
+                   : encode_sub_levels<kCrossed, false>(s, q, r, kt, batch, h, w, levels, ah, aw, st);
   else
-    err = lossless ? encode_sub_levels<kLeftTop, true>(s, q, r, batch, h, w, levels, ah, aw, st)
-                   : encode_sub_levels<kLeftTop, false>(s, q, r, batch, h, w, levels, ah, aw, st);
+    err = lossless ? encode_sub_levels<kLeftTop, true>(s, q, r, kt, batch, h, w, levels, ah, aw, st)
+                   : encode_sub_levels<kLeftTop, false>(s, q, r, kt, batch, h, w, levels, ah, aw, st);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -10,34 +10,53 @@
 // Each computes what the TPU code computes, bit for bit; none of its
 // tiling is carried over.
 //
-// X1 encodes [B, n] planes, each with its own table and lanes, in four
-// kernels on the caller's stream:
-//   1. rans_histogram: a 256-bin histogram per block in shared memory,
-//      added into the plane's global counts with atomics (integer, so
-//      order-free and exact);
+// X1 encodes [B, n] planes, each with its own table and lanes, in three
+// kernels and one memset on the caller's stream:
+//   1. rans_histogram: 16-byte loads, one 256-bin sub-histogram per warp
+//      in shared memory, merged per block and added into the plane's
+//      global counts with atomics (integer, so order-free and exact);
 //   2. rans_normalize: one block of 256 threads per plane, one symbol per
 //      thread.  It counts the T*L - n padding zeros into symbol 0 (they
 //      are coded), then runs the JAX normalizer: the float32 quotient
 //      floor(f32(count) * 16384 / f32(total)) with IEEE division, the
 //      drift absorbed by the first most frequent symbol, six rounds of
-//      +-1 units spread by a block-wide scan; it writes freq and the
-//      packed lookup table freq << 16 | cum;
-//   3. rans_encode_lanes: one thread per lane l, the table in shared
-//      memory, walking rows t = T-1 .. 0 and reading sym[t*L + l]
-//      (coalesced across a warp).  Emitted words go to a [T, L] scratch
-//      at row k = the lane's emission count, so a warp's stores stay
-//      close together;
-//   4. rans_lane_offsets and rans_store_words: an exclusive scan of all
-//      B*L word counts, then each lane's words copied to its offset in
-//      reverse emission order.  That is the stored order (lane-major,
-//      decode order within a lane, planes one after another), the same
-//      placement as JAX's global sort_key_val, without a sort.
+//      +-1 units spread by a block-wide scan.  It writes freq and, per
+//      symbol, the lanes' entry {m_lo, m_hi, f << 18, (M - f) | bias << 16}
+//      with m = floor((2^64 - 1) / f) + 1, and clears the lanes' look-back
+//      state;
+//   3. rans_encode_lanes: a block of W lanes (a ticket taken at its start
+//      orders the blocks), the table in shared memory.  The block's
+//      [rows, W] byte tile of symbols (row t of lane l at t*L + l) is
+//      staged ahead of use in chunks of rows, double-buffered with
+//      cp.async (16-byte pieces; the bytes at or past n are zero-filled,
+//      so the padding codes symbol 0).  Each lane walks its rows
+//      t = T-1 .. 0 in groups of four, three groups in flight: the
+//      symbols of the group after next, the entries of the next, the
+//      state updates of this one; the entries do not depend on the state.
+//      The division x / f is a multiply-high: q = hi64(x * m), exact for
+//      every x < 2^32 and f in [2, 2^14) since x * (m*f - 2^64) < 2^64;
+//      for f = 1, m = 2^64 - 1 gives q = x - 1 and the entry's bias adds
+//      the missing M - 1.  So the state's chain per row is a compare, a
+//      predicated shift, two multiply-highs and a multiply-add.  The word
+//      a row would emit is stored to shared memory every row, kept by
+//      moving the lane's slot on when it is emitted: no branch.  After
+//      each chunk a warp writes its lanes' words to their scratch rows,
+//      from each row's end backwards, so a row ends in stored order.  The
+//      block's word count then takes its offset by a decoupled look-back
+//      over the blocks before it (one warp, 32 predecessors a step), and
+//      the block copies its lanes' words, one run of the stream, to place.
+//      That is the stored order (lane-major, decode order within a lane,
+//      planes one after another), the same placement as JAX's global
+//      sort_key_val, without a sort and without a stage that runs as one
+//      block.
 // What bounds it on this card: not bytes (one 1080x1920 plane reads 2 MB
-// and writes about 1.3 MB) but the lanes' serial dependency chain, T steps
-// of a 32-bit division each, on only L threads (2048 at 1080x1920, 16 per
-// SM).  One plane cannot fill the card; a batch fills it over grid y.
-// Reciprocal tables in place of the division, and several planes' lanes
-// per block, are later work.
+// and writes about 1.3 MB) and not the issue rate, but the lanes' serial
+// chain: T rows times the latency of one state update, on L lanes (2048
+// at 1080x1920, one warp on each of 64 SMs).  With a single warp on its
+// scheduler, any instruction that waits stalls the chain; so the loads
+// run groups ahead, in an order the volatile shared-memory accesses keep,
+// and the stores read a copy of the state.  A batch fills the card over
+// its B * L / W blocks.
 //
 // K6 packs 1024-symbol blocks, one block of 128 threads each: thread j
 // folds its column's 8 bytes (zigzag), builds the 8 plane bytes with
@@ -48,6 +67,7 @@
 // memory: each byte is read once and written once, coalesced.
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -58,10 +78,18 @@ constexpr int kM = 1 << kScaleBits;
 constexpr uint32_t kStateL = 1u << 16;  // state lower bound
 constexpr int kRenormShift = 18;        // emit iff x >= freq << 18
 constexpr int kMinLanes = 128, kMaxLanes = 8192;
-constexpr int kMaxGridY = 65535;  // planes per launch
-constexpr int kLaneThreads = 128;  // lanes are a multiple of 128
-constexpr int kScanThreads = 1024;
-constexpr int kHistBlocksPerPlane = 264;  // 2 per SM on 132 SMs
+constexpr int kMaxGridY = 65535;  // planes per histogram launch
+constexpr int kHistThreads = 256;
+constexpr int kHistWarps = kHistThreads / 32;
+constexpr long long kHistBytesPerBlock = 1 << 15;  // 8 16-byte loads a thread
+constexpr int kHistMaxBlocksPerPlane = 264;        // 2 per SM on 132 SMs
+// Symbol rows staged per chunk: the tile, its double buffer and the
+// emitted words of a chunk stay within the 48 KB of static shared memory.
+__host__ __device__ constexpr int chunk_rows(int lanes_a_block) {
+  return lanes_a_block == 128 ? 64 : 128;
+}
+constexpr unsigned long long kAggregate = 1ull, kPrefix = 2ull;  // look-back flags
+constexpr unsigned long long kValueMask = (1ull << 62) - 1;
 constexpr int kBlock = 1024;  // symbols per bit-pack block: [8, 128]
 constexpr int kLane = 128;
 
@@ -89,28 +117,58 @@ __device__ T block_scan(T v, T* warp_tot, T* total) {
   return v + prefix;
 }
 
-__global__ void rans_histogram(const uint8_t* sym, int* hist, long long n) {
-  __shared__ int local[256];
-  local[threadIdx.x] = 0;  // blockDim.x == 256
+__device__ __forceinline__ void count4(int* h, uint32_t word) {
+  atomicAdd(&h[word & 255u], 1);
+  atomicAdd(&h[(word >> 8) & 255u], 1);
+  atomicAdd(&h[(word >> 16) & 255u], 1);
+  atomicAdd(&h[word >> 24], 1);
+}
+
+// Plane blockIdx.y: the bytes before its first 16-byte boundary one by
+// one, then 16-byte loads, then the tail.
+__global__ void __launch_bounds__(kHistThreads)
+    rans_histogram(const uint8_t* __restrict__ sym, int* hist, long long n) {
+  __shared__ int sub[kHistWarps][256];
+  for (int i = threadIdx.x; i < kHistWarps * 256; i += kHistThreads) (&sub[0][0])[i] = 0;
   __syncthreads();
-  const uint8_t* s = sym + blockIdx.y * n;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    atomicAdd(&local[s[i]], 1);
+  int* mine = sub[threadIdx.x >> 5];
+  const uint8_t* s = sym + (long long)blockIdx.y * n;
+  const long long head =
+      min(n, (long long)((16 - (reinterpret_cast<uintptr_t>(s) & 15)) & 15));
+  const long long vecs = (n - head) >> 4;
+  const long long tid = (long long)blockIdx.x * kHistThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kHistThreads;
+  if (tid < head) atomicAdd(&mine[s[tid]], 1);
+  const uint4* v = reinterpret_cast<const uint4*>(s + head);
+  for (long long i = tid; i < vecs; i += stride) {
+    const uint4 q = v[i];
+    count4(mine, q.x);
+    count4(mine, q.y);
+    count4(mine, q.z);
+    count4(mine, q.w);
+  }
+  for (long long i = head + (vecs << 4) + tid; i < n; i += stride) atomicAdd(&mine[s[i]], 1);
   __syncthreads();
-  const int c = local[threadIdx.x];
+  int c = 0;
+#pragma unroll
+  for (int w = 0; w < kHistWarps; ++w) c += sub[w][threadIdx.x];
   if (c) atomicAdd(&hist[blockIdx.y * 256 + threadIdx.x], c);
 }
 
 // One block of 256 threads per plane; `freq` holds the histogram on entry
-// and the table on exit.
-__global__ void rans_normalize(int* freq, uint32_t* table, int total, int pad) {
+// and the table on exit.  Also clears the plane's `per_plane` look-back
+// words, and block 0 the lanes' ticket.
+__global__ void rans_normalize(int* freq, uint4* entries, int total, int pad,
+                               unsigned long long* status, int per_plane,
+                               unsigned* ticket) {
   __shared__ int warp_tot[8];
   __shared__ unsigned long long warp_max[8];
   __shared__ int fmx_shared;
   const int s = threadIdx.x;
-  int* fp = freq + blockIdx.x * 256;
+  int* fp = freq + blockIdx.x * 256LL;
   const int c = fp[s] + (s == 0 ? pad : 0);
+  if (s < per_plane) status[(long long)blockIdx.x * per_plane + s] = 0;
+  if (blockIdx.x == 0 && s == 0) *ticket = 0;
 
   // floor(f32(c) * 16384 / f32(total)); c and total are exact in f32.
   const float q = __fdiv_rn(__fmul_rn((float)c, (float)kM), (float)total);
@@ -153,67 +211,267 @@ __global__ void rans_normalize(int* freq, uint32_t* table, int total, int pad) {
   }
   const int cum = block_scan<int, 8>(f, warp_tot, &sum) - f;
   fp[s] = f;
-  table[blockIdx.x * 256 + s] = ((uint32_t)f << 16) | (uint32_t)cum;
+  // The lanes' entry (an absent symbol's is never read).
+  const unsigned long long m = f >= 2 ? ~0ull / (unsigned)f + 1 : ~0ull;
+  const uint32_t bias = (uint32_t)cum + (f >= 2 ? 0u : (uint32_t)(kM - 1));
+  entries[blockIdx.x * 256LL + s] =
+      make_uint4((uint32_t)m, (uint32_t)(m >> 32), (uint32_t)f << kRenormShift,
+                 (uint32_t)(kM - f) | (bias << 16));
 }
 
-__global__ void rans_encode_lanes(const uint8_t* sym, const uint32_t* table,
-                                  uint16_t* scratch, int* counts,
-                                  uint32_t* states, long long n, int lanes,
-                                  int rows) {
-  __shared__ uint32_t tab[256];
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) tab[i] = table[b * 256 + i];
-  __syncthreads();
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;  // lanes % 128 == 0
-  const uint8_t* s = sym + b * n;
-  uint16_t* out = scratch + (long long)b * rows * lanes;
-  uint32_t x = kStateL;
-  int k = 0;
-  for (int t = rows - 1; t >= 0; --t) {
-    const long long i = (long long)t * lanes + l;
-    const uint32_t e = tab[i < n ? s[i] : 0];  // the padding codes symbol 0
-    const uint32_t f = e >> 16, c = e & 0xffffu;
-    if ((x >> kRenormShift) >= f) {
-      out[(long long)k * lanes + l] = (uint16_t)(x & 0xffffu);
-      ++k;
-      x >>= 16;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {  // all groups but the newest
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [lo, hi) of the block's lanes l0 .. l0+W-1 into dst[row - lo][lane]:
+// 16-byte cp.async pieces (VEC: the plane starts on a 16-byte boundary),
+// else byte by byte; positions at or past n read 0.
+template <int W, bool VEC>
+__device__ __forceinline__ void stage_rows(uint8_t (*dst)[W], const uint8_t* plane,
+                                           long long n, int lanes, int l0, int lo,
+                                           int hi) {
+  const int rows = hi - lo;
+  if (VEC) {
+    constexpr int kPieces = W / 16;
+    for (int i = threadIdx.x; i < rows * kPieces; i += W) {
+      const int r = i / kPieces, p = i % kPieces;
+      const long long pos = (long long)(lo + r) * lanes + l0 + 16 * p;
+      const long long left = n - pos;
+      const int bytes = left >= 16 ? 16 : (left > 0 ? (int)left : 0);
+      cp_async16(&dst[r][16 * p], plane + (bytes ? pos : 0), bytes);
     }
-    const uint32_t q = x / f;
-    x = (q << kScaleBits) + (x - q * f) + c;
-  }
-  counts[b * lanes + l] = k;
-  states[b * lanes + l] = x;
-}
-
-// One block: offsets[i] = sum(counts[:i]) over all B*L lanes, each thread
-// summing a contiguous chunk.
-__global__ void rans_lane_offsets(const int* counts, long long* offsets,
-                                  long long total_lanes) {
-  __shared__ long long warp_tot[kScanThreads / 32];
-  const long long chunk = (total_lanes + kScanThreads - 1) / kScanThreads;
-  const long long begin = min(threadIdx.x * chunk, total_lanes);
-  const long long end = min(begin + chunk, total_lanes);
-  long long sum = 0;
-  for (long long i = begin; i < end; ++i) sum += counts[i];
-  long long all;
-  long long run = block_scan<long long, kScanThreads / 32>(sum, warp_tot, &all) - sum;
-  for (long long i = begin; i < end; ++i) {
-    offsets[i] = run;
-    run += counts[i];
+  } else {
+    for (int r = 0; r < rows; ++r) {
+      const long long pos = (long long)(lo + r) * lanes + l0 + threadIdx.x;
+      dst[r][threadIdx.x] = pos < n ? plane[pos] : 0;
+    }
   }
 }
 
-// One block per lane: the lane's k-th stored word is its (count-1-k)-th
-// emitted one.
-__global__ void rans_store_words(const uint16_t* scratch, const int* counts,
-                                 const long long* offsets, uint16_t* stream,
-                                 int lanes, int rows) {
-  const int l = blockIdx.x, b = blockIdx.y;
-  const int cnt = counts[b * lanes + l];
-  const long long off = offsets[b * lanes + l];
-  const uint16_t* src = scratch + (long long)b * rows * lanes + l;
-  for (int k = threadIdx.x; k < cnt; k += blockDim.x)
-    stream[off + k] = src[(long long)(cnt - 1 - k) * lanes];
+// Shared-memory accesses of the lanes loop, volatile: the machine code
+// keeps them in the order written, so the loads of later rows stay ahead
+// of the state updates that need them.  Addresses are shared-window bytes.
+__device__ __forceinline__ uint32_t shared_u8(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.volatile.shared.u8 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ uint4 shared_v4(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.volatile.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ void shared_store_u16(uint32_t a, uint32_t v) {
+  asm volatile("st.volatile.shared.u16 [%0], %1;" ::"r"(a), "h"((unsigned short)v) : "memory");
+}
+
+// One symbol into the state x with its entry e.  The word x would emit is
+// stored at slot + n * pitch every row, whether it is emitted or not; an
+// emission keeps it by moving n on.  So no branch, and the store reads a
+// copy of x, so that the shift below need not wait for the store to read
+// its operand.
+template <int PITCH>
+__device__ __forceinline__ void rans_step(uint32_t& x, const uint4 e, uint32_t slot, int& n) {
+  shared_store_u16(slot + 2u * PITCH * n, __byte_perm(x, 0u, 0x0010));  // a copy of x
+  const bool emit = x >= e.z;
+  n += emit;
+  x = emit ? x >> 16 : x;
+  const uint32_t mid = __umulhi(x, e.x);
+  const uint32_t q = (uint32_t)(((unsigned long long)x * e.y + mid) >> 32);
+  x += q * (e.w & 0xffffu) + (e.w >> 16);
+}
+
+// The symbols of rows r, r-1, r-2, r-3 of the lane's staged column.
+template <int W>
+__device__ __forceinline__ void load_syms(uint32_t (&s)[4], uint32_t col, int r) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = shared_u8(col + (r - i) * W);
+}
+
+__device__ __forceinline__ void load_entries(uint4 (&e)[4], uint32_t tab, const uint32_t (&s)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) e[i] = shared_v4(tab + (s[i] << 4));
+}
+
+template <int PITCH>
+__device__ __forceinline__ void step_group(uint32_t& x, const uint4 (&e)[4], uint32_t slot,
+                                           int& n) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rans_step<PITCH>(x, e[i], slot, n);
+}
+
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+// Warp 0 of block `blk`: publishes the block's word count `agg`, then sums
+// the counts of every block before it, 32 at a time, back to the nearest
+// that holds its inclusive prefix; publishes its own and returns the
+// exclusive one.
+__device__ unsigned long long look_back(unsigned long long* status, int blk,
+                                        unsigned long long agg) {
+  const int lane = threadIdx.x & 31;
+  if (blk == 0) {
+    if (lane == 0) atomicExch(status, (kPrefix << 62) | agg);
+    return 0;
+  }
+  if (lane == 0) atomicExch(status + blk, (kAggregate << 62) | agg);
+  unsigned long long excl = 0;
+  for (int j = blk - 1;; j -= 32) {
+    const int idx = j - lane;
+    unsigned long long v = kPrefix << 62;  // before block 0: a prefix of 0
+    if (idx >= 0) {
+      do {
+        v = load_status(status + idx);
+      } while ((v >> 62) == 0);
+    }
+    const unsigned prefix = __ballot_sync(0xffffffffu, (v >> 62) == kPrefix);
+    const int last = prefix ? __ffs(prefix) - 1 : 31;
+    unsigned long long add = lane <= last ? (v & kValueMask) : 0;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) add += __shfl_xor_sync(0xffffffffu, add, d);
+    excl += add;
+    if (prefix) break;
+  }
+  if (lane == 0) atomicExch(status + blk, (kPrefix << 62) | (excl + agg));
+  return excl;
+}
+
+template <int W, bool VEC>
+__global__ void __launch_bounds__(W)
+    rans_encode_lanes(const uint8_t* __restrict__ sym, const uint4* __restrict__ entries,
+                      uint16_t* scratch, int* __restrict__ counts,
+                      uint32_t* __restrict__ states, uint16_t* __restrict__ stream,
+                      unsigned long long* status, unsigned* ticket, long long n,
+                      int lanes, int rows) {
+  constexpr int kChunkRows = chunk_rows(W);
+  constexpr int kPitch = W + 2;  // emitted words: rows kPitch apart, off one bank
+  __shared__ uint4 tab[256];
+  __shared__ __align__(16) uint8_t tile[2][kChunkRows][W];
+  __shared__ uint16_t emitted[kChunkRows * kPitch];  // this chunk's, per lane
+  __shared__ int warp_tot[W / 32];
+  __shared__ int s_blk;
+  __shared__ unsigned long long s_excl;
+  if (threadIdx.x == 0) s_blk = (int)atomicAdd(ticket, 1u);
+  __syncthreads();
+  const int blk = s_blk;
+  const int per_plane = lanes / W;
+  const long long b = blk / per_plane;
+  const int l0 = (blk % per_plane) * W;
+  for (int i = threadIdx.x; i < 256; i += W) tab[i] = entries[b * 256 + i];
+  const uint8_t* plane = sym + b * n;
+  // Emission k goes to scratch[row_end - k]: each lane's scratch row is
+  // filled from its end, so it ends in stored order.
+  uint16_t* row_end = scratch + (b * lanes + l0 + threadIdx.x) * rows + rows - 1;
+  const uint32_t slot = (uint32_t)__cvta_generic_to_shared(emitted + threadIdx.x);
+  const uint32_t tab_s = (uint32_t)__cvta_generic_to_shared(tab);
+
+  // Chunks from the top: the first holds ((rows - 1) % kChunkRows) + 1
+  // rows, the others kChunkRows.
+  int hi = rows, lo = rows - ((rows - 1) % kChunkRows + 1);
+  stage_rows<W, VEC>(tile[0], plane, n, lanes, l0, lo, hi);
+  cp_async_commit();
+  uint32_t x = kStateL;
+  int k = 0;  // words emitted before this chunk
+  for (int c = 0; hi > 0; ++c) {
+    const int next = max(lo - kChunkRows, 0);
+    if (lo > 0) stage_rows<W, VEC>(tile[(c + 1) & 1], plane, n, lanes, l0, next, lo);
+    cp_async_commit();  // possibly empty
+    cp_async_wait_prev();
+    __syncthreads();
+    const uint32_t col = (uint32_t)__cvta_generic_to_shared(&tile[c & 1][0][threadIdx.x]);
+    int r = hi - lo - 1, m = 0;  // m: words emitted in this chunk
+    for (; (r & 3) != 3; --r) rans_step<kPitch>(x, shared_v4(tab_s + (shared_u8(col + r * W) << 4)), slot, m);
+    if (r >= 3) {
+      // Groups of four rows, three in flight: the symbols of the group
+      // after next, the entries of the next group (from symbols read a
+      // group earlier), the state updates of this one.  A row past the
+      // chunk's last group reads a valid row, never used.
+      uint32_t sa[4], sb[4];
+      uint4 a[4], e[4];
+      load_syms<W>(sa, col, r);
+      load_entries(a, tab_s, sa);
+      load_syms<W>(sb, col, max(r - 4, 3));
+#pragma unroll 1
+      for (;;) {
+        load_entries(e, tab_s, sb);
+        load_syms<W>(sa, col, max(r - 8, 3));
+        step_group<kPitch>(x, a, slot, m);
+        r -= 4;
+        if (r < 3) break;
+        load_entries(a, tab_s, sa);
+        load_syms<W>(sb, col, max(r - 8, 3));
+        step_group<kPitch>(x, e, slot, m);
+        r -= 4;
+        if (r < 3) break;
+      }
+    }
+    // The lane writes its words of the chunk to its scratch row, from the
+    // row's end backwards, so that the row ends in stored order.
+    {
+      uint16_t* dst = row_end - k;
+      const uint16_t* from = emitted + threadIdx.x;
+#pragma unroll 4
+      for (int i = 0; i < m; ++i) dst[-i] = from[i * kPitch];
+    }
+    k += m;
+    __syncthreads();  // the tile buffer is staged again two chunks on
+    hi = lo;
+    lo = next;
+  }
+  const long long lane_id = b * lanes + l0 + threadIdx.x;
+  counts[lane_id] = k;
+  states[lane_id] = x;
+
+  int total;
+  const int incl = block_scan<int, W / 32>(k, warp_tot, &total);
+  if (threadIdx.x < 32) {
+    const unsigned long long excl = look_back(status, blk, (unsigned long long)total);
+    if (threadIdx.x == 0) s_excl = excl;
+  }
+  __syncthreads();
+  // The block's lanes' words are one run of the stream, lane after lane:
+  // each lane copies its own, eight words read before any is written.
+  const uint16_t* from = row_end - (k - 1);
+  uint16_t* to = stream + s_excl + (incl - k);
+  for (int i = 0; i < k; i += 8) {
+    uint16_t v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (i + u < k) v[u] = from[i + u];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (i + u < k) to[i + u] = v[u];
+  }
+}
+
+template <int W>
+cudaError_t launch_lanes(bool vec, unsigned blocks, cudaStream_t st, const uint8_t* s,
+                         const uint4* e, uint16_t* scr, int* c, uint32_t* x,
+                         uint16_t* out, unsigned long long* status, unsigned* ticket,
+                         long long n, int lanes, int rows) {
+  if (vec)
+    rans_encode_lanes<W, true><<<blocks, W, 0, st>>>(s, e, scr, c, x, out, status, ticket,
+                                                     n, lanes, rows);
+  else
+    rans_encode_lanes<W, false><<<blocks, W, 0, st>>>(s, e, scr, c, x, out, status,
+                                                      ticket, n, lanes, rows);
+  return cudaGetLastError();
 }
 
 __global__ void bitpack_pack_blocks(const uint8_t* in, uint8_t* out,
@@ -266,53 +524,61 @@ __global__ void bitpack_unpack_blocks(const uint8_t* in, uint8_t* out) {
 
 extern "C" {
 
-// X1: sym is [batch, n] uint8; freq and table are [batch, 256] int32 /
-// uint32, counts and states [batch, lanes], offsets [batch * lanes] int64,
-// stream and scratch [batch * rows * lanes] uint16, all device buffers.
-// lanes = lanes_for(n), rows = ceil(n / lanes).  On return stream holds
-// every plane's words in stored order from offset 0.
-int rans_tpu_encode(const void* sym, void* freq, void* counts, void* states,
-                    void* stream, void* table, void* scratch, void* offsets,
-                    int batch, int n, int lanes, int rows, void* cu_stream) {
+// X1: sym is [batch, n] uint8; freq [batch, 256] int32, entries [batch,
+// 256] x 16 bytes, counts and states [batch, lanes] int32, stream and
+// scratch [batch * lanes * rows] uint16, status [batch * lanes /
+// lane_block + 1] x 8 bytes (the look-back words, then the ticket), all
+// device buffers.  lanes = lanes_for(n), rows = ceil(n / lanes),
+// lane_block (lanes a block: 32, 64 or 128) divides lanes.  On return
+// stream holds every plane's words in stored order from offset 0.
+int rans_tpu_encode(const void* sym, void* freq, void* counts, void* states, void* stream,
+                    void* entries, void* scratch, void* status, int batch, int n,
+                    int lanes, int rows, int lane_block, void* cu_stream) {
   const auto* s = static_cast<const uint8_t*>(sym);
   auto* f = static_cast<int*>(freq);
-  auto* c = static_cast<int*>(counts);
-  auto* x = static_cast<uint32_t*>(states);
-  auto* out = static_cast<uint16_t*>(stream);
-  auto* tab = static_cast<uint32_t*>(table);
-  auto* scr = static_cast<uint16_t*>(scratch);
-  auto* off = static_cast<long long*>(offsets);
+  auto* e = static_cast<uint4*>(entries);
+  auto* st_words = static_cast<unsigned long long*>(status);
   auto st = static_cast<cudaStream_t>(cu_stream);
   const long long cells = (long long)rows * lanes;
   if (batch <= 0 || n <= 0 || lanes < kMinLanes || lanes > kMaxLanes ||
-      (lanes & (lanes - 1)) || cells < n || cells - n >= lanes ||
-      cells > (1LL << 24))
+      (lanes & (lanes - 1)) || cells < n || cells - n >= lanes || cells > (1LL << 24) ||
+      (lane_block != 32 && lane_block != 64 && lane_block != 128))
     return cudaErrorInvalidValue;
+  const int per_plane = lanes / lane_block;
+  const long long blocks = (long long)batch * per_plane;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  auto* ticket = reinterpret_cast<unsigned*>(st_words + blocks);
   cudaError_t err = cudaMemsetAsync(f, 0, sizeof(int) * 256 * (size_t)batch, st);
   if (err != cudaSuccess) return err;
-  const int hist_blocks =
-      (int)std::min<long long>(kHistBlocksPerPlane, (n + 255) / 256);
+  const int hist_blocks = (int)std::min<long long>(
+      kHistMaxBlocksPerPlane, (n + kHistBytesPerBlock - 1) / kHistBytesPerBlock);
   for (int b0 = 0; b0 < batch; b0 += kMaxGridY) {
     const int nb = std::min(kMaxGridY, batch - b0);
-    rans_histogram<<<dim3(hist_blocks, nb), 256, 0, st>>>(
+    rans_histogram<<<dim3(hist_blocks, nb), kHistThreads, 0, st>>>(
         s + (long long)b0 * n, f + b0 * 256LL, n);
   }
-  rans_normalize<<<batch, 256, 0, st>>>(f, tab, (int)cells, (int)(cells - n));
-  for (int b0 = 0; b0 < batch; b0 += kMaxGridY) {
-    const int nb = std::min(kMaxGridY, batch - b0);
-    rans_encode_lanes<<<dim3(lanes / kLaneThreads, nb), kLaneThreads, 0, st>>>(
-        s + (long long)b0 * n, tab + b0 * 256LL, scr + b0 * cells,
-        c + (long long)b0 * lanes, x + (long long)b0 * lanes, n, lanes, rows);
-  }
-  rans_lane_offsets<<<1, kScanThreads, 0, st>>>(c, off, (long long)batch * lanes);
-  for (int b0 = 0; b0 < batch; b0 += kMaxGridY) {
-    const int nb = std::min(kMaxGridY, batch - b0);
-    rans_store_words<<<dim3(lanes, nb), kLaneThreads, 0, st>>>(
-        scr + b0 * cells, c + (long long)b0 * lanes, off + (long long)b0 * lanes,
-        out, lanes, rows);
-  }
+  rans_normalize<<<batch, 256, 0, st>>>(f, e, (int)cells, (int)(cells - n), st_words,
+                                        per_plane, ticket);
   err = cudaGetLastError();
-  return err;
+  if (err != cudaSuccess) return err;
+  // 16-byte pieces need every plane on a 16-byte boundary.
+  const bool vec = reinterpret_cast<uintptr_t>(s) % 16 == 0 && (batch == 1 || n % 16 == 0);
+  auto* scr = static_cast<uint16_t*>(scratch);
+  auto* c = static_cast<int*>(counts);
+  auto* x = static_cast<uint32_t*>(states);
+  auto* out = static_cast<uint16_t*>(stream);
+  const unsigned nblk = (unsigned)blocks;
+  switch (lane_block) {
+    case 32:
+      return launch_lanes<32>(vec, nblk, st, s, e, scr, c, x, out, st_words, ticket, n,
+                              lanes, rows);
+    case 64:
+      return launch_lanes<64>(vec, nblk, st, s, e, scr, c, x, out, st_words, ticket, n,
+                              lanes, rows);
+    default:
+      return launch_lanes<128>(vec, nblk, st, s, e, scr, c, x, out, st_words, ticket, n,
+                               lanes, rows);
+  }
 }
 
 // K6: in is [n] uint8; out [nb, 8, 128] uint8 and widths [nb] int32,

@@ -20,7 +20,7 @@
 // __fadd_rn and __fmul_rn, which nvcc never contracts into an FMA, so each
 // op rounds as the three separate PyTorch ops of the plain version do.
 //
-// Geometry is K1's (hgi_codec.cu): 256 threads a block, grid
+// Geometry is K2's (hgi_codec.cu): 256 threads a block, grid
 // (blocks_for(cells), B).  A cell is one u32 word of 4 pixels of a row, so
 // each thread carries four independent chains, the instruction-level
 // parallelism the TPU kernel got from its 16 stride-4 planes.  When W is a

@@ -23,7 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["BUILD_DIR", "SOURCES", "build", "find_nvcc", "load"]
+__all__ = ["BUILD_DIR", "SOURCES", "QTable", "build", "find_nvcc", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in ("hgi_codec.cu", "hgi_entropy.cu", "hgi_probe.cu"))
@@ -36,6 +36,12 @@ _FLAGS = (
 )
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+class QTable(ctypes.Structure):
+    """A quantizer table as the kernels take it: 256 bytes, by value."""
+
+    _fields_ = [("v", ctypes.c_uint8 * 256)]
 
 
 def find_nvcc() -> Optional[str]:
@@ -125,13 +131,13 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.hgi_encode.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        lib.hgi_encode.argtypes = [ptr, ptr, ptr, QTable] + [i32] * 9 + [ptr]
         lib.hgi_encode.restype = i32
         lib.hgi_decode.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr]
         lib.hgi_decode.restype = i32
         ptrs = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
         lib.hgi_encode_subbands.argtypes = [
-            ptr, ptr, ptrs, ptr, ptr, i32, i32, i32, i32, i32, ptr,
+            ptr, ptr, ptrs, ptr, QTable, i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.hgi_encode_subbands.restype = i32
         lib.hgi_assemble_grid.argtypes = [ptr, ptrs, ptr, i32, i32, i32, i32, ptr]
@@ -140,7 +146,7 @@ def load() -> ctypes.CDLL:
             ptr, ptrs, ptr, i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.hgi_decode_subbands.restype = i32
-        lib.rans_tpu_encode.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.rans_tpu_encode.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
         lib.rans_tpu_encode.restype = i32
         i64 = ctypes.c_longlong
         lib.bitpack_pack.argtypes = [ptr, ptr, ptr, i64, i64, ptr]

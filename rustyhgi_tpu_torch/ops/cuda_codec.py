@@ -29,15 +29,21 @@ table, so no CUDA configuration routes to the plain version.
 each kernel's C entry point (each runs the whole level loop), so a run can
 show that it went through the kernels.
 
-The quantizer table lives in the library's ``__constant__`` memory and is
-copied there on the current stream before each lossy encode's launches,
-so calls on one stream may use different tables; lossy encodes with
-different tables on two streams at once would race for it.
+The quantizer table reaches the kernels by value, as a 256-byte launch
+argument that each block copies to shared memory, so calls on any
+streams may use any tables at once.  :func:`table_arg` checks and
+converts a table tensor once and keeps the result for as long as the
+tensor lives unchanged, so a codec's calls do no host work for it.
+
+K1's lossy path tiles its finest ``min(L, FINE_LEVELS)`` levels in
+``TILE`` tiles in one launch, and launches once more per coarser level;
+its lossless path is one launch at any depth.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -45,15 +51,20 @@ import torch
 
 from ..dyadic import canvas_shapes, cdiv, effective_levels
 from . import _build, pyramid
+from ._build import QTable
 from .predictors import PREDICTORS, check_predictor
 
 __all__ = [
     "encode_plane",
+    "encode_plane_tiled",
     "decode_plane",
     "encode_subbands",
     "assemble_grid",
     "decode_subbands",
     "decode_preview",
+    "table_arg",
+    "TILE",
+    "FINE_LEVELS",
     "encode_launches",
     "decode_launches",
     "encode_subbands_launches",
@@ -71,6 +82,15 @@ decode_subbands_launches = 0
 # both dims at or below 2**30 keeps `1 << levels` and every step in int.
 _MAX_DIM = 1 << 30
 _MAX_BATCH = 1 << 31
+
+# Lossy K1's tiles (rows, columns: multiples of 16 and of 2**FINE_LEVELS)
+# and the number of finest levels they take in one launch, chosen by
+# ``python -m rustyhgi_tpu_torch.tools.chip_probe sweep``.
+TILE = (64, 128)
+FINE_LEVELS = 4
+
+_NO_TABLE = QTable()  # the lossless paths read no table
+_tables = {}  # id(tensor) -> (weakref to it, its version, QTable)
 
 
 def _check_cuda(x: torch.Tensor, name: str) -> Tuple[int, int, int]:
@@ -95,11 +115,24 @@ def _raise_on(lib, rc: int, entry: str) -> None:
         raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")
 
 
-def _table_bytes(table: torch.Tensor) -> ctypes.Array:
+def table_arg(table: torch.Tensor) -> QTable:
+    """The kernels' by-value copy of a 256-entry quantizer table.
+
+    Checked and converted once per tensor: the result is kept until the
+    tensor dies or is changed in place (its version counter moves).
+    Raises ValueError unless the table holds 256 values in [0, 255].
+    """
+    key = id(table)
+    hit = _tables.get(key)
+    if hit is not None and hit[0]() is table and hit[1] == table._version:
+        return hit[2]
     t = table.detach().to("cpu", torch.int64).reshape(-1)
     if t.numel() != 256 or bool(((t < 0) | (t > 255)).any()):
         raise ValueError("quantizer table must hold 256 values in [0, 255]")
-    return (ctypes.c_uint8 * 256).from_buffer_copy(t.numpy().astype(np.uint8))
+    arg = QTable.from_buffer_copy(t.numpy().astype(np.uint8).tobytes())
+    _tables[key] = (weakref.ref(table, lambda _, key=key: _tables.pop(key, None)),
+                    table._version, arg)
+    return arg
 
 
 def encode_plane(
@@ -113,12 +146,30 @@ def encode_plane(
     Same contract as :func:`.pyramid.encode_plane`: ``table`` None is the
     lossless path, and ``recon`` is then ``image`` itself.
     """
+    return encode_plane_tiled(image, levels, table, predictor)
+
+
+def encode_plane_tiled(
+    image: torch.Tensor,
+    levels: int,
+    table: Optional[torch.Tensor] = None,
+    predictor: str = "crossed",
+    tile: Tuple[int, int] = TILE,
+    fine: int = FINE_LEVELS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`encode_plane` with the lossy path's tiling given: ``tile``
+    (rows, columns, multiples of 16 and of ``2**fine``) and ``fine``, the
+    finest levels a tile runs (0-5).  The output does not depend on them;
+    ``chip_probe sweep`` times each choice."""
     global encode_launches
     predictor = check_predictor(predictor)
     if image.device.type == "cpu":
         return pyramid.encode_plane(image, levels, table, predictor)
+    th, tw = (int(d) for d in tile)
+    if not 0 <= fine <= 5 or min(th, tw) <= 0 or th % 16 or tw % 16 or (th | tw) % (1 << fine):
+        raise ValueError(f"tile {tile} must be multiples of 16 and of 2**{fine}, fine in [0, 5]")
     b, h, w = _check_cuda(image, "image")
-    tab = None if table is None else _table_bytes(table)
+    tab = None if table is None else table_arg(table)
     grid = torch.empty_like(image)
     recon = image if tab is None else torch.empty_like(image)
     if image.numel() == 0:
@@ -128,9 +179,10 @@ def encode_plane(
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hgi_encode(
             image.data_ptr(), grid.data_ptr(),
-            None if tab is None else recon.data_ptr(), tab,
+            None if tab is None else recon.data_ptr(), _NO_TABLE if tab is None else tab,
+            tab is not None,
             b, h, w, effective_levels(levels, h, w), PREDICTORS[predictor],
-            stream,
+            th, tw, fine, stream,
         )
     encode_launches += 1
     _raise_on(lib, rc, "hgi_encode")
@@ -222,7 +274,7 @@ def encode_subbands(
     a_shape, q_shapes = canvas_shapes(h, w, lv)
     anchors = image.new_empty(lead + a_shape)
     subbands = [tuple(image.new_empty(lead + s) for _ in range(3)) for s in q_shapes]
-    tab = None if table is None else _table_bytes(table)
+    tab = None if table is None else table_arg(table)
     recon = image if tab is None else torch.empty_like(image)
     if image.numel():
         lib = _build.load()
@@ -231,8 +283,8 @@ def encode_subbands(
             rc = lib.hgi_encode_subbands(
                 image.data_ptr(), anchors.data_ptr(),
                 _ptrs([q for quads in subbands for q in quads]),
-                None if tab is None else recon.data_ptr(), tab,
-                b, h, w, lv, PREDICTORS[predictor], stream,
+                None if tab is None else recon.data_ptr(), _NO_TABLE if tab is None else tab,
+                tab is not None, b, h, w, lv, PREDICTORS[predictor], stream,
             )
         encode_subbands_launches += 1
         _raise_on(lib, rc, "hgi_encode_subbands")

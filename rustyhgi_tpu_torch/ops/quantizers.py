@@ -3,8 +3,8 @@
 Counterpart of ``rustyhgi_tpu/ops/quantizers.py`` (reference:
 src/quantizator.rs:1-73).  Every strategy comes down to a 256-entry table
 of the wrapped residual byte, and that table is what the engines take:
-the plain PyTorch engine indexes it, the CUDA kernel keeps it in constant
-memory.  ``table is None`` means the identity, which the engines
+the plain PyTorch engine indexes it, the CUDA kernels take it by value and
+keep it in shared memory.  ``table is None`` means the identity, which the engines
 specialise into the lossless path (no quantize, no overflow fixup,
 reconstruction equals the source).
 

@@ -18,7 +18,9 @@ Two versions compute the same outputs:
 * the CUDA kernel ``rans_tpu_encode`` of ``csrc/hgi_entropy.cu``, which
   :func:`encode_batch` launches for a CUDA tensor (``rans_launches``
   counts its calls); for a CPU tensor, and only then, it takes the plain
-  version.
+  version.  Its lanes divide by no variable: :func:`reciprocal` and
+  :func:`quotient` are their division-free step in plain Python, which
+  the CPU tests hold against ``//``.
 
 Both take ``[B, n]`` planes, each with its own table and lanes, and
 return ``(freq [B, 256] int32, counts [B, L] int32, states [B, L] int32,
@@ -56,6 +58,9 @@ __all__ = [
     "finalize_stream",
     "encode_bytes",
     "decode_bytes",
+    "reciprocal",
+    "quotient",
+    "LANE_BLOCK",
     "rans_launches",
 ]
 
@@ -71,6 +76,10 @@ _RENORM_SHIFT = 18  # emit iff state >= freq << 18, compared shifted
 MAX_SYMBOLS = 1 << 24
 
 _MIN_LANES, _MAX_LANES = 128, 8192
+
+# Lanes a block of the kernel's lane stage codes (32, 64 or 128):
+# ``python -m rustyhgi_tpu_torch.tools.chip_probe sweep`` times each.
+LANE_BLOCK = 32
 
 
 def lanes_for(n: int) -> int:
@@ -123,6 +132,38 @@ def _bits(x: torch.Tensor, width: int, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(x >= 1 << (width - 1), x - (1 << width), x).to(dtype)
 
 
+def reciprocal(f: int) -> Tuple[int, int]:
+    """The kernel's reciprocal of a frequency ``f`` in ``[1, M)``: ``(m,
+    extra)``, ``m`` a u64 with ``quotient(x, m) == x // f`` for every u32
+    ``x`` when ``f >= 2``.
+
+    ``m = floor((2**64 - 1) / f) + 1``: then ``m * f = 2**64 + d`` with
+    ``0 <= d < f``, and ``x * m / 2**64 = x / f + x * d / (f * 2**64)``,
+    whose second term is below ``1 / f`` for ``x < 2**32``, too small to
+    reach the next integer.  For ``f = 1`` that ``m`` is ``2**64``, one
+    past u64: the kernel takes ``m = 2**64 - 1``, whose quotient is
+    ``x - 1`` for ``x >= 1``, and ``extra = M - 1`` restores the state
+    (``x + (x - 1) * (M - 1) + M - 1 == x * M``).  The lanes' step is then
+    ``x + q * (M - f) + cum + extra``, no division on the state's chain.
+    """
+    if not 1 <= f < _M:
+        raise ValueError(f"frequency {f} outside [1, {_M})")
+    if f == 1:
+        return (1 << 64) - 1, _M - 1
+    return ((1 << 64) - 1) // f + 1, 0
+
+
+def quotient(x, m):
+    """``hi64(x * m)`` for u32 ``x`` and u64 ``m`` (ints or numpy arrays,
+    elementwise) as the kernel forms it: ``(x * m_hi + hi32(x * m_lo)) >>
+    32``, two 32x32 multiplies whose sums stay below ``2**64``."""
+    m = np.asarray(m, dtype=np.uint64)
+    m_lo, m_hi = m & np.uint64(0xFFFFFFFF), m >> np.uint64(32)
+    x = np.asarray(x, dtype=np.uint64)
+    mid = (x * m_lo) >> np.uint64(32)
+    return (x * m_hi + mid) >> np.uint64(32)
+
+
 def _check(sym: torch.Tensor) -> Tuple[int, int, int, int]:
     if sym.dtype != torch.uint8 or sym.dim() != 2:
         raise ValueError(f"symbols must be uint8 [B, n], got {sym.dtype} {tuple(sym.shape)}")
@@ -167,11 +208,13 @@ def encode_plain(sym: torch.Tensor):
             _bits(x, 32, torch.int32), stream)
 
 
-def encode_batch(sym: torch.Tensor):
+def encode_batch(sym: torch.Tensor, lane_block: int = LANE_BLOCK):
     """X1: uint8 ``[B, n]`` -> ``(freq, counts, states, stream)``.
 
     The kernel on a CUDA tensor, the plain version on a CPU tensor.
     Raises ValueError for an empty or oversized stream, as JAX does.
+    ``lane_block`` (32, 64 or 128 lanes a block) changes the kernel's
+    launch, never its output.
     """
     global rans_launches
     if sym.device.type == "cpu":
@@ -181,7 +224,10 @@ def encode_batch(sym: torch.Tensor):
     b, n, lanes, rows = _check(sym)
     if not sym.is_contiguous():
         raise ValueError("symbols must be contiguous")
-    if b >= 1 << 31:
+    if lane_block not in (32, 64, 128):
+        raise ValueError(f"lane_block must be 32, 64 or 128, got {lane_block}")
+    blocks = b * (lanes // lane_block)
+    if blocks >= 1 << 31:
         raise ValueError(f"batch of {b} planes is beyond the kernel's range")
 
     def new(*shape, dtype=torch.int32):
@@ -189,16 +235,16 @@ def encode_batch(sym: torch.Tensor):
 
     freq, counts, states = new(b, 256), new(b, lanes), new(b, lanes)
     stream = new(b * rows * lanes, dtype=torch.int16)
-    table = new(b, 256)  # freq << 16 | cum, scratch
-    scratch = new(b * rows * lanes, dtype=torch.int16)  # words in emission order
-    offsets = new(b * lanes, dtype=torch.int64)  # each lane's first stored word
+    entries = new(b, 256, 4)  # the lanes' per-symbol entries, scratch
+    scratch = new(b * rows * lanes, dtype=torch.int16)  # each lane's words
+    status = new(blocks + 1, dtype=torch.int64)  # look-back words, ticket
     lib = _build.load()
     with torch.cuda.device(sym.device):
         cu_stream = torch.cuda.current_stream().cuda_stream
         rc = lib.rans_tpu_encode(
             sym.data_ptr(), freq.data_ptr(), counts.data_ptr(), states.data_ptr(),
-            stream.data_ptr(), table.data_ptr(), scratch.data_ptr(), offsets.data_ptr(),
-            b, n, lanes, rows, cu_stream,
+            stream.data_ptr(), entries.data_ptr(), scratch.data_ptr(), status.data_ptr(),
+            b, n, lanes, rows, lane_block, cu_stream,
         )
     rans_launches += 1
     if rc != 0:

@@ -1,10 +1,14 @@
 """Probes of the card, run one at a time.
 
-Counterpart of the JAX repo's ``tools/chip_probe.py``.  One subcommand is
-ported: ``vpucal``, the op-rate calibration probe (``cmd_vpucal``), on
-the probe kernel K8 (:mod:`..ops.vpucal`, ``csrc/hgi_probe.cu``)::
+Counterpart of the JAX repo's ``tools/chip_probe.py``.  Two subcommands
+are ported: ``vpucal``, the op-rate calibration probe (``cmd_vpucal``), on
+the probe kernel K8 (:mod:`..ops.vpucal`, ``csrc/hgi_probe.cu``), and
+``sweep`` (``cmd_sweep``), which times lossy K1's tile and fine depth and
+X1's lanes a block, where the JAX probe swept its Pallas kernel's row
+tiles::
 
     python -m rustyhgi_tpu_torch.tools.chip_probe vpucal [names]
+    python -m rustyhgi_tpu_torch.tools.chip_probe sweep
 
 ``names`` is a comma-separated subset of the rows:
 
@@ -54,7 +58,7 @@ import torch
 from ..ops import _build, vpucal
 from ..utils.benchsuite import device_samples
 
-__all__ = ["cmd_vpucal", "main", "sass_loops"]
+__all__ = ["cmd_sweep", "cmd_vpucal", "main", "sass_chain", "sass_loops"]
 
 SEED = 20261016
 SHAPE = (8, 1080, 1920)
@@ -95,6 +99,12 @@ def _loops(lines) -> list:
     ``[(body opcodes)]``, each body from the branch's target to the
     branch, NOPs left out; the trap that ends a listing (a branch to
     itself) is no loop."""
+    return [[_opcode(t) for t in body] for _, _, body in _loop_bodies(lines)]
+
+
+def _loop_bodies(lines) -> list:
+    """``[(first address, branch address, [instruction text])]`` of each
+    loop of one function, NOPs left out."""
     insns, labels = [], {}
     for line in lines:
         m = _LABEL.match(line)
@@ -119,15 +129,11 @@ def _loops(lines) -> list:
         to = int(target, 16) if target.startswith("0x") else labels.get(target)
         if to is None or to >= addr:
             continue
-        loops.append([_opcode(t) for a, t in insns if to <= a <= addr and _opcode(t) != "NOP"])
+        loops.append((to, addr, [t for a, t in insns if to <= a <= addr and _opcode(t) != "NOP"]))
     return loops
 
 
-def sass_loops(sass: str) -> Dict[str, dict]:
-    """Per kind, from ``cuobjdump -sass`` of the library: the main loop
-    body (the largest loop of the kernel's word variant), its instruction
-    count, the count per thread per round (``/ UNROLL``) and per pixel per
-    round (``/ (4 * UNROLL)``), and its opcode histogram."""
+def _functions(sass: str) -> Dict[str, list]:
     funcs, name = {}, None
     for line in sass.splitlines():
         m = _FUNCTION.search(line)
@@ -136,8 +142,16 @@ def sass_loops(sass: str) -> Dict[str, dict]:
             funcs[name] = []
         elif name is not None:
             funcs[name].append(line)
+    return funcs
+
+
+def sass_loops(sass: str) -> Dict[str, dict]:
+    """Per kind, from ``cuobjdump -sass`` of the library: the main loop
+    body (the largest loop of the kernel's word variant), its instruction
+    count, the count per thread per round (``/ UNROLL``) and per pixel per
+    round (``/ (4 * UNROLL)``), and its opcode histogram."""
     out = {}
-    for fname, lines in funcs.items():
+    for fname, lines in _functions(sass).items():
         m = _KERNEL.search(fname)
         if not m:
             continue
@@ -157,6 +171,91 @@ def sass_loops(sass: str) -> Dict[str, dict]:
     return out
 
 
+_REGISTER = re.compile(r"\b(U?R\d+|U?P\d+)(\.64)?\b")
+_GUARD = re.compile(r"^@!?(U?P\d+|U?PT)\s+")
+# Opcodes (up to the first dot) that write no register.
+_NO_DEST = {"ST", "STG", "STS", "STL", "BRA", "EXIT", "BAR", "RET", "CALL", "NOP", "YIELD",
+            "WARPSYNC", "DEPBAR", "LDGDEPBAR", "LDGSTS", "RED", "REDUX", "CCTL", "MEMBAR",
+            "ERRBAR", "BSYNC", "BSSY", "NANOSLEEP", "SYNCS", "ARRIVES"}
+
+
+def _registers(operand: str, width: int = 1) -> list:
+    """The registers an operand names; ``R4.64`` (or ``width`` 2 or 4) is
+    R4 and the next ones."""
+    out = []
+    for m in _REGISTER.finditer(operand):
+        name = m.group(1)
+        n = 2 if m.group(2) else width
+        kind, num = re.match(r"(U?[RP])(\d+)", name).groups()
+        out += [f"{kind}{int(num) + i}" for i in range(n if kind.endswith("R") else 1)]
+    return out
+
+
+def _dataflow(text: str):
+    """``(opcode, dests, sources)`` of one SASS instruction; a guarded
+    instruction also reads its guard and, since it may not write, its
+    destinations' old values."""
+    guard = _GUARD.match(text)
+    body = text[guard.end():] if guard else text
+    op, _, rest = body.partition(" ")
+    operands = [o.strip() for o in rest.split(",")] if rest.strip() else []
+    srcs = _registers(guard.group(1)) if guard else []
+    dests = []
+    if op.split(".")[0] not in _NO_DEST and operands:
+        width = 4 if ".128" in op else 2 if (".64" in op or ".WIDE" in op) else 1
+        dests = _registers(operands[0], width)
+        i = 1
+        while i < len(operands) and re.fullmatch(r"!?(U?P\d+|U?PT)", operands[i]):
+            dests += _registers(operands[i])  # carry-outs and second predicates
+            i += 1
+        operands = operands[i:]
+        if ".WIDE" in op and len(operands) >= 3:  # a 64-bit addend
+            srcs += _registers(operands[2], 2)
+            operands = operands[:2] + operands[3:]
+    for o in operands:
+        srcs += _registers(o)
+    if guard:
+        srcs += dests
+    return op, dests, srcs
+
+
+def sass_chain(sass: str, function: str, rows: int, marker: str) -> Optional[dict]:
+    """The dependent chain of the main loop of the first function whose
+    name contains ``function``: of its innermost loops, the one with the
+    most instructions of opcode ``marker`` (then the most instructions),
+    whose body codes ``rows`` rows.  Returns its instruction count, the
+    longest read-after-write path through its body in instructions
+    (``chain``), that per row (``chain_per_row``), and the path's opcodes;
+    None when no such function or loop exists."""
+    for fname, lines in _functions(sass).items():
+        if function not in fname:
+            continue
+        loops = _loop_bodies(lines)
+        inner = [lp for lp in loops
+                 if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+        if not inner:
+            return None
+        body = max(inner, key=lambda lp: (sum(_opcode(t) == marker for t in lp[2]),
+                                          len(lp[2])))[2]
+        depth, path, writer = [], [], {}
+        for text in body:
+            op, dests, srcs = _dataflow(text)
+            prev = [writer[r] for r in srcs if r in writer]
+            best = max(prev, key=lambda i: depth[i]) if prev else None
+            depth.append(1 + (depth[best] if best is not None else 0))
+            path.append((op, best))
+            for r in dests:
+                writer[r] = len(depth) - 1
+        end = max(range(len(depth)), key=depth.__getitem__)
+        ops = []
+        while end is not None:
+            ops.append(path[end][0])
+            end = path[end][1]
+        return {"function": fname, "loop_instructions": len(body), "chain": max(depth),
+                "chain_per_row": max(depth) / rows, "chain_opcodes": ops[::-1]}
+    return None
+
+
 def _cuobjdump() -> Optional[str]:
     nvcc = _build.find_nvcc()
     if nvcc is None:
@@ -172,6 +271,34 @@ def library_sass() -> Optional[str]:
         return None
     return subprocess.run([tool, "-sass", str(_build.build())], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_summary(log: str, names) -> Dict[str, dict]:
+    """From the build log's ``-Xptxas -v`` lines: registers, static shared
+    memory and spill bytes of each kernel whose mangled name contains one
+    of ``names``."""
+    out, current = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            current = m.group(1) if any(n in m.group(1) for n in names) else None
+            if current:
+                out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            out[current].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = _PTXAS_USED.search(line)
+        if m:
+            out[current].update(registers=int(m.group(1)), smem=int(m.group(2) or 0))
+    return out
 
 
 # -- vpucal --------------------------------------------------------------------
@@ -231,6 +358,86 @@ def cmd_vpucal(names=None) -> Dict[str, dict]:
     return rows
 
 
+# -- sweep ---------------------------------------------------------------------
+
+SWEEP_SHAPES = ((1, 1080, 1920), (8, 1080, 1920))
+SWEEP_TILES = ((16, 64), (32, 32), (32, 64), (64, 64), (32, 128), (64, 128), (128, 128))
+SWEEP_LEVELS = (4, 8)
+SWEEP_FINE = (4, 5)
+SWEEP_LANE_BLOCKS = (32, 64, 128)
+SWEEP_X1_PLANES = (1, 8, 32)
+
+
+def _plane(rng, shape) -> np.ndarray:
+    """A smooth plane with mild noise (waves plus sigma 6)."""
+    *lead, h, w = shape
+    y = np.linspace(0.0, 6.0, h)[:, None]
+    x = np.linspace(0.0, 9.0, w)[None, :]
+    base = 128 + 60 * np.sin(y) * np.cos(x) + 30 * np.sin(3 * x + y)
+    return np.clip(base + rng.normal(0.0, 6.0, (*lead, h, w)), 0, 255).astype(np.uint8)
+
+
+def cmd_sweep() -> Dict[str, dict]:
+    """Lossy K1's tile and fine depth, and X1's lanes a block, by device
+    time (``torch.profiler``, the mean of ``bench.REPEATS`` calls), on
+    smooth 1080x1920 planes at medium; every choice's output is checked
+    equal to the default's.  Prints a row a line, then one JSON object
+    ``{"sweep": {...}}``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweep needs a CUDA card: torch.cuda.is_available() is false")
+    from .. import bench
+    from ..ops import cuda_codec, tpurans
+    from ..ops.quantizers import QuantizationLevel, quantize_fn
+
+    smi = card()
+    rng = np.random.default_rng(SEED)
+    table = quantize_fn(QuantizationLevel.MEDIUM).table
+
+    def device_ms(fn):
+        return sum(bench.device_trace(fn, "cuda").values()) * 1e3 or None
+
+    rows = {"k1": {}, "x1": {}}
+    print(f"device: {torch.cuda.get_device_name(0)} | K1 medium (crossed) and X1 on smooth "
+          f"planes; device ms, torch.profiler mean | default tile {cuda_codec.TILE}, fine "
+          f"{cuda_codec.FINE_LEVELS}, lane block {tpurans.LANE_BLOCK}", flush=True)
+    for shape in SWEEP_SHAPES:
+        img = torch.from_numpy(_plane(rng, shape)).to("cuda")
+        for levels in SWEEP_LEVELS:
+            want = cuda_codec.encode_plane(img, levels, table)
+            for fine in SWEEP_FINE:
+                if fine > min(SWEEP_FINE) and fine > levels:
+                    continue  # F = min(L, fine): the same launch as fine 4
+                for tile in SWEEP_TILES:
+                    if (tile[0] | tile[1]) % (1 << fine):
+                        continue
+                    run = lambda: cuda_codec.encode_plane_tiled(img, levels, table, "crossed",
+                                                                tile, fine)
+                    got = run()
+                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                        raise RuntimeError(f"K1 tile {tile} fine {fine} differs at {shape} L{levels}")
+                    ms = device_ms(run)
+                    key = f"{'x'.join(map(str, shape))} L{levels} fine {fine} tile {tile[0]}x{tile[1]}"
+                    rows["k1"][key] = ms
+                    print(f"sweep K1 {key}: device {ms if ms is None else f'{ms:.4f}'} ms [{smi}]",
+                          flush=True)
+    grid = cuda_codec.encode_plane(torch.from_numpy(_plane(rng, (1, 1080, 1920))).to("cuda"),
+                                   4, table)[0].reshape(1, -1)
+    for planes in SWEEP_X1_PLANES:
+        sym = grid.expand(planes, -1).contiguous()
+        want = tpurans.encode_batch(sym)
+        for lb in SWEEP_LANE_BLOCKS:
+            got = tpurans.encode_batch(sym, lb)
+            if not all(torch.equal(a, b) for a, b in zip(got[:3], want[:3])):
+                raise RuntimeError(f"X1 lane block {lb} differs at {planes} planes")
+            ms = device_ms(lambda: tpurans.encode_batch(sym, lb))
+            key = f"{planes}x1080x1920 lane block {lb}"
+            rows["x1"][key] = ms
+            print(f"sweep X1 {key}: device {ms if ms is None else f'{ms:.4f}'} ms [{smi}]",
+                  flush=True)
+    print(json.dumps({"sweep": rows}))
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m rustyhgi_tpu_torch.tools.chip_probe",
@@ -240,8 +447,12 @@ def main(argv=None) -> int:
     p = sub.add_parser("vpucal", help="op-rate calibration on the probe kernel K8")
     p.add_argument("names", nargs="?", default=None,
                    help=f"comma-separated rows, of {','.join(ROWS)} (default all)")
+    sub.add_parser("sweep", help="lossy K1's tile and fine depth, X1's lanes a block")
     args = parser.parse_args(argv)
-    cmd_vpucal(args.names.split(",") if args.names else None)
+    if args.command == "sweep":
+        cmd_sweep()
+    else:
+        cmd_vpucal(args.names.split(",") if args.names else None)
     return 0
 
 

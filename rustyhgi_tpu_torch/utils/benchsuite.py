@@ -20,8 +20,8 @@ reported as MPix/s):
 The *_nop rows use the NoOp strategy (quantizator.rs:17-34): no table at
 all, so K1 takes its lossless specialisation.  The *_quanted rows use the
 table-driven Lossless LUT (quantizator.rs:36-73), whose ``identity`` is
-False: K1 takes its closed-loop template with the 256-entry table in
-constant memory, quantize, overflow fixup and recon write included.  The
+False: K1 takes its closed-loop tiles with the 256-entry table in
+shared memory, quantize, overflow fixup and recon write included.  The
 pairs therefore time different code, as the reference's pairs isolate
 traversal cost from LUT-lookup cost.
 

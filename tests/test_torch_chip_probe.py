@@ -98,3 +98,73 @@ def test_vpucal_rejects_unknown_rows(monkeypatch):
 def test_rows_are_the_jax_probes_with_torch_for_xla():
     assert chip_probe.ROWS == ("mix3x16", "add", "shift", "csel", "f32add", "torch")
     assert (chip_probe.K_LO, chip_probe.K_HI, chip_probe.SHAPE) == (200, 2000, (8, 1080, 1920))
+
+
+LANES_BODY = [  # two rows of X1's lanes loop, as nvcc emits them
+    "LDS.U8 R4, [R12+UR5]", "LEA R4, R4, UR9, 0x4", "LDS.128 R4, [R4]",
+    "STS.U16 [R72], R77", "ISETP.GE.U32.AND P0, PT, R77, R66, PT",
+    "@P0 SHF.R.U32.HI R77, RZ, 0x10, R77", "IMAD.HI.U32 R66, R77, R64, RZ",
+    "LEA.HI R64, R67, R77, RZ, 0x10", "IMAD.MOV.U32 R67, RZ, RZ, RZ",
+    "IMAD.HI.U32 R66, R77, R65, R66", "IMAD R77, R66, R73, R64",
+    "ISETP.GE.U32.AND P0, PT, R77, R50, PT", "@P0 SHF.R.U32.HI R77, RZ, 0x10, R77",
+    "IMAD.HI.U32 R50, R77, R48, RZ", "IMAD.HI.U32 R50, R77, R49, R50",
+    "IMAD R77, R50, R65, R64", "ISETP.GT.AND P1, PT, R70, 0x6, PT",
+]
+
+
+@pytest.mark.parametrize(
+    "branch",
+    [lambda top: f"@P1 BRA 0x{top:x}", lambda top: "@P1 BRA `(.L_x_7)"],
+    ids=["address", "label"],
+)
+def test_sass_chain_follows_the_state_through_the_lanes_loop(branch):
+    sass = (_function("_ZN12_GLOBAL__N_111encode_levelILi0EEEvPKh",
+                      ["IMAD.HI.U32 R1, R1, R2, RZ"] * 40, branch)
+            + _function("_ZN12_GLOBAL__N_117rans_encode_lanesILi32ELb1EEEvPKh", LANES_BODY,
+                        branch))
+    got = chip_probe.sass_chain(sass, "rans_encode_lanesILi32ELb1E", 2, "IMAD.HI.U32")
+    assert got["loop_instructions"] == len(LANES_BODY) + 1  # the branch included
+    # ISETP, SHF, IMAD.HI, IMAD.HI, IMAD a row: the entry loads and the
+    # stored word stay off the state's chain.
+    assert got["chain_opcodes"] == ["ISETP.GE.U32.AND", "SHF.R.U32.HI", "IMAD.HI.U32",
+                                    "IMAD.HI.U32", "IMAD"] * 2
+    assert got["chain"] == 10 and got["chain_per_row"] == 5.0
+    assert chip_probe.sass_chain(sass, "no_such_kernel", 2, "IMAD.HI.U32") is None
+
+
+def test_dataflow_reads_guards_pairs_and_carries():
+    assert chip_probe._dataflow("@!P0 IMAD.WIDE.U32 R6, R2, R9, R6") == (
+        "IMAD.WIDE.U32", ["R6", "R7"], ["P0", "R6", "R7", "R2", "R9", "R6", "R7"])
+    assert chip_probe._dataflow("ISETP.GE.U32.AND P0, PT, R5, R7, PT") == (
+        "ISETP.GE.U32.AND", ["P0"], ["R5", "R7"])
+    assert chip_probe._dataflow("STG.E.U16 desc[UR6][R4.64], R2") == (
+        "STG.E.U16", [], ["UR6", "R4", "R5", "R2"])
+    assert chip_probe._dataflow("LDS.128 R8, [R3+UR4]")[1] == ["R8", "R9", "R10", "R11"]
+    assert chip_probe._dataflow("IADD3 R4, P1, R2, R3, RZ")[1:] == (["R4", "P1"], ["R2", "R3"])
+
+
+def test_ptxas_summary_reads_the_named_kernels():
+    log = (
+        "ptxas info    : Compiling entry function '_Z13encode_tilesILi0ELb1EEv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z13encode_tilesILi0ELb1EEv\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 2048 bytes smem, 640 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z3fooPi' for 'sm_90a'\n"
+        "ptxas info    : Used 12 registers, used 0 barriers\n"
+    )
+    assert chip_probe.ptxas_summary(log, ["encode_tiles"]) == {
+        "_Z13encode_tilesILi0ELb1EEv": {"spill_stores": 8, "spill_loads": 4,
+                                        "registers": 40, "smem": 2048}}
+
+
+def test_sweep_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        chip_probe.main(["sweep"])
+
+
+def test_sweep_choices_fit_the_kernels():
+    for th, tw in chip_probe.SWEEP_TILES:
+        assert th % 16 == 0 and tw % 16 == 0
+    assert set(chip_probe.SWEEP_LANE_BLOCKS) == {32, 64, 128}
+    assert max(chip_probe.SWEEP_FINE) <= 5

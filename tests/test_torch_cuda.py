@@ -52,6 +52,51 @@ def test_kernels_match_plain_version(cuda, shape, preset, pred):
         assert torch.equal(dec, recon)
 
 
+@pytest.mark.parametrize("shape", [(3, 300, 517), (2614, 2368), (129, 65)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("preset", [QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM],
+                         ids=["lossless", "medium"])
+@pytest.mark.parametrize("pred", ["crossed", "left_top"])
+def test_k1_over_many_ragged_tiles(cuda, shape, preset, pred):
+    """Lossless K1's one launch, and lossy K1's tiles with every split of
+    the depth between coarse launches and tiled levels."""
+    img = torch.from_numpy(_image(shape)).to(cuda)
+    table = _table(preset)
+    for levels in range(1, 9):
+        grid, recon = cuda_codec.encode_plane(img, levels, table, pred)
+        want_grid, want_recon = pyramid.encode_plane(img, levels, table, pred)
+        assert torch.equal(grid, want_grid), levels
+        assert torch.equal(recon, want_recon), levels
+
+
+@pytest.mark.parametrize("tile,fine", [((16, 16), 4), ((32, 32), 5), ((128, 128), 5),
+                                       ((16, 48), 2), ((64, 128), 0)])
+def test_k1_tiling_does_not_change_the_output(cuda, tile, fine):
+    img = torch.from_numpy(_image((2, 150, 333))).to(cuda)
+    table = _table(QuantizationLevel.HIGH)
+    for levels in (0, 2, 5, 8):
+        got = cuda_codec.encode_plane_tiled(img, levels, table, "crossed", tile, fine)
+        want = pyramid.encode_plane(img, levels, table, "crossed")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), levels
+
+
+def test_tables_on_two_streams_at_once(cuda):
+    """The table travels with each launch: lossy encodes with different
+    tables on two streams do not race."""
+    img = torch.from_numpy(_image((4, 540, 960))).to(cuda)
+    low, high = _table(QuantizationLevel.LOW), _table(QuantizationLevel.HIGH)
+    want = {t: pyramid.encode_plane(img, 6, tab) for t, tab in (("low", low), ("high", high))}
+    streams = {"low": torch.cuda.Stream(), "high": torch.cuda.Stream()}
+    got = {}
+    for _ in range(5):
+        for t, tab in (("low", low), ("high", high)):
+            with torch.cuda.stream(streams[t]):
+                got[t] = cuda_codec.encode_plane(img, 6, tab)
+        torch.cuda.synchronize()
+        for t in got:
+            assert torch.equal(got[t][0], want[t][0]) and torch.equal(got[t][1], want[t][1])
+
+
 def test_identity_table_through_the_lossy_template(cuda):
     img = torch.from_numpy(_image((37, 53))).to(cuda)
     table = _table(QuantizationLevel.LOSSLESS, "lut")
@@ -193,6 +238,9 @@ def _streams():
     for n in (1, 127, 128, 129, 511, 512, 513, 1024, 1025, 65536):
         out[f"uniform-{n}"] = rng.integers(0, 256, n, dtype=np.uint8)
         out[f"geometric-{n}"] = (rng.geometric(0.3, n) % 256).astype(np.uint8)
+    odd = np.zeros(1080 * 1920, np.uint8)
+    odd[54321] = 200  # frequencies 1 and 16383: the reciprocal's extremes
+    out["one-odd-byte"] = odd
     out["zeros"] = np.zeros(10000, np.uint8)
     out["one-symbol"] = np.full(3000, 255, np.uint8)
     out["two-symbols"] = np.tile(np.array([0, 255], np.uint8), 500)
@@ -220,6 +268,22 @@ def test_rans_kernel_matches_plain_version(cuda, name):
     heads = tpurans.fetch_heads(*got[:3])
     payload = tpurans.frame_payloads(sym.shape[1], *heads, tpurans.fetch_words(got[3], heads[1]))[0]
     assert np.array_equal(tpurans.decode_bytes(payload, sym.shape[1]), STREAMS[name])
+
+
+@pytest.mark.parametrize("lane_block", [32, 64, 128])
+@pytest.mark.parametrize("name", ["uniform-65536", "geometric-1025", "one-odd-byte"])
+def test_rans_kernel_lane_blocks_agree(cuda, name, lane_block):
+    sym = torch.from_numpy(STREAMS[name]).to(cuda)[None]
+    _assert_rans_equal(tpurans.encode_batch(sym, lane_block), tpurans.encode_plain(sym))
+
+
+def test_rans_kernel_on_32_planes(cuda):
+    rng = np.random.default_rng(23)
+    planes = (rng.geometric(0.1, (32, 1080 * 1920)) % 256).astype(np.uint8)
+    planes[5] = 0
+    planes[5, 999] = 1  # one plane with frequencies 1 and 16383
+    sym = torch.from_numpy(planes).to(cuda)
+    _assert_rans_equal(tpurans.encode_batch(sym), tpurans.encode_plain(sym))
 
 
 @pytest.mark.parametrize("shape", [(3, 61, 83), (2, 1, 1), (5, 300, 257)])
