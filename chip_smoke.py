@@ -59,8 +59,12 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
 8. time each kernel and its plain version with CUDA events, and read
    the kernel's device time alone, and the device kernels one call
    launches, with ``torch.profiler`` (lossless K1 must be one launch at
-   depths 4 and 8, lossy K1 one at depth 4: checked first of all, while
-   the profiler's traces hold every record); for X1's histogram, also
+   depths 4 and 8, lossy K1 one at depth 4, K2 and K5 one at depth 4 and
+   for K5's preview at upto 2, and 1 + 8 - DECODE_FINE_LEVELS at depth 8:
+   checked first of all, while the profiler's traces hold every record;
+   K2's and K5's device times are traced then too, on the very grids and
+   quads this phase times, which are made first from a seed of their
+   own); for X1's histogram, also
    ``torch.bincount`` on the same grid; and X1's device time against its
    rows and lanes, from one plane to 32.  Each kernel's bound is the
    larger of its bytes over 3.35 TB/s and its operations over the card's
@@ -69,9 +73,11 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    higher.  X1 also has a chain bound: its rows T times the dependent
    chain of its lanes loop, in SASS instructions a row (read with
    ``cuobjdump -sass``), times 4 cycles, over the SM clock;
-9. run the probe's ``sweep`` (lossy K1's tile and fine depth, X1's lanes
-   a block) with the launch counts set to 0 just before it and read just
-   after (K1, X1).
+9. run the probe's ``sweep`` (lossy K1's tile and fine depth, K2's and
+   K5's tile and fine depth with fine 0 for one launch a level, K5's
+   previews, the decodes' tile at more plane counts and sizes, X1's lanes
+   a block) in a process of its own, whose traces hold every record, and
+   check the launches of K1, K2, K5 and X1 that it reports.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -94,7 +100,6 @@ import zlib
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 
 from rustyhgi_tpu_torch import HGICodec, bench, cli
 from rustyhgi_tpu_torch.ops import _build, bitpack, cuda_codec, native, pyramid, tpurans, vpucal
@@ -115,8 +120,7 @@ from rustyhgi_tpu_torch.utils.container import (
     write_hgi,
     write_thgi,
 )
-from rustyhgi_tpu_torch.tools import chip_probe
-from rustyhgi_tpu_torch.utils import profiling
+from rustyhgi_tpu_torch.tools import chip_probe, decode_times
 from rustyhgi_tpu_torch.utils.benchsuite import SUITE, device_samples
 from rustyhgi_tpu_torch.utils.imageio import load_luma, save_gray
 
@@ -813,22 +817,22 @@ def bench_tier(card: str) -> tuple:
 
 
 def sweep(card: str) -> None:
-    """Last phase: ``chip_probe sweep`` through its entry point, with the
-    launch counts set to 0 just before it and read just after.  Last,
-    since its many traces leave the profiler dropping records in later
-    ones; a choice whose trace dropped records prints as not measured."""
-    _reset_launches()
+    """Last phase: ``python -m rustyhgi_tpu_torch.tools.chip_probe sweep``
+    in a process of its own, whose traces hold every record however much
+    this one traced; the sweep reports the wrapper calls of K1, K2, K5 and
+    X1 it made."""
     t0 = time.perf_counter()
-    rc, text = _captured(lambda: chip_probe.main(["sweep"]))
-    launches = _read_launches()
-    print(f"{text.rstrip()}\nchip_probe sweep ({time.perf_counter() - t0:.1f} s) [{card}]")
-    _check(rc == 0, "chip_probe sweep failed")
-    rows = json.loads(text.strip().splitlines()[-1])["sweep"]
-    timed = [v for group in rows.values() for v in group.values()]
+    proc = subprocess.run([sys.executable, "-m", "rustyhgi_tpu_torch.tools.chip_probe", "sweep"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    print(f"{proc.stdout.rstrip()}\nchip_probe sweep ({time.perf_counter() - t0:.1f} s) [{card}]")
+    _check(proc.returncode == 0, f"chip_probe sweep failed:\n{proc.stderr[-4000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches = result["launches"]
+    timed = [v for group in result["sweep"].values() for v in group.values()]
     print(f"phase sweep: launches {launches}; {sum(1 for v in timed if v)} of {len(timed)} "
           f"choices timed")
     _check(any(timed), "chip_probe sweep timed no choice")
-    for kernel in ("K1", "X1"):
+    for kernel in ("K1", "K2", "K5", "X1"):
         _check(launches[kernel] > 0, f"chip_probe sweep never launched {kernel}")
 
 
@@ -855,22 +859,43 @@ def _device_ms(fn, only: str = ""):
 def _device_trace(fn) -> tuple:
     """One call of ``fn`` under torch.profiler, REPEATS calls after a
     warm-up: (device ms of its kernels and copies, device kernels launched
-    a call, copies and memsets not counted).  A trace whose counts are no
-    multiple of REPEATS dropped records and is taken again; (None, None)
-    when three did."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profiling.trace(None, DEVICE) as prof:
-            for _ in range(REPEATS):
-                fn()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        if events and all(e.count % REPEATS == 0 for e in events):
-            ms = sum(e.self_device_time_total for e in events) / REPEATS / 1e3
-            n = sum(e.count for e in events if "Memcpy" not in e.key and "Memset" not in e.key)
-            return ms, n / REPEATS
-    return None, None
+    a call); (None, None) when the traces dropped records
+    (``decode_times.device_trace``)."""
+    return decode_times.device_trace(fn, REPEATS)
+
+
+def timing_inputs() -> dict:
+    """Phase 8's inputs, made once from a seed of their own: for 1x and
+    8x1080x1920 and each preset, ``(plane, table, K1's grid, K3's anchors,
+    K3's quads)``."""
+    rng = np.random.default_rng([SEED, 9])
+    inputs = {}
+    for shape in [(1, 1080, 1920), (8, 1080, 1920)]:
+        img = torch.from_numpy(_natural_plane(rng, shape)).to(DEVICE)
+        for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
+            table = _table(preset)
+            anchors, subbands, _ = cuda_codec.encode_subbands(img, 4, table)
+            inputs[shape, preset] = (img, table, cuda_codec.encode_plane(img, 4, table)[0],
+                                     anchors, subbands)
+    return inputs
+
+
+def decode_device_times(inputs: dict, card: str) -> dict:
+    """Phase 8, early, while the profiler's traces hold every record: K2's
+    and K5's device time and device launches a call on phase 8's own
+    grids and quads; ``{(kernel, shape, preset): (ms, launches)}``."""
+    times = {}
+    for (shape, preset), (img, _, grid, anchors, subbands) in inputs.items():
+        hw = img.shape[-2:]
+        for kernel, fn in (("K2", lambda: cuda_codec.decode_plane(grid, 4)),
+                           ("K5", lambda: cuda_codec.decode_subbands(anchors, subbands, hw, 4))):
+            dk, launched = _device_trace(fn)
+            what = f"{kernel} {'x'.join(map(str, shape))} L4 {preset.name.lower()}"
+            _check(dk is not None, f"{what}: the trace dropped records, no device time")
+            times[kernel, shape, preset] = (dk, launched)
+            print(f"device {what}: {dk:.4f} ms, {launched:g} device launch(es) a call, "
+                  f"torch.profiler mean of {REPEATS} calls on phase 8's inputs [{card}]")
+    return times
 
 
 def _x1_chain(mhz: float) -> dict:
@@ -900,87 +925,112 @@ def _shown(d, e) -> str:
             else f"{d:.4f} ms ({100 * (1 - d / e):.1f}% idle in the event window)")
 
 
-def timings(rng, card: str, peak_ops: float) -> dict:
-    """Phase 8: kernel and plain version, same inputs, same call."""
+def timings(inputs: dict, card: str, peak_ops: float, early: dict) -> dict:
+    """Phase 8: kernel and plain version, same inputs, same call.  K2's
+    and K5's device times and launches come from ``early``
+    (:func:`decode_device_times`, on the same inputs)."""
     rows = {}
-    for shape in [(1, 1080, 1920), (8, 1080, 1920)]:
-        img = torch.from_numpy(_natural_plane(rng, shape)).to(DEVICE)
+    for (shape, preset), (img, table, grid, anchors, subbands) in inputs.items():
         hw = img.shape[-2:]
         b, n = shape[0], img.numel()
-        for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
-            table = _table(preset)
-            lossy = n if table is not None else 0
-            grid = cuda_codec.encode_plane(img, 4, table)[0]
-            anchors, subbands, _ = cuda_codec.encode_subbands(img, 4, table)
-            canvas = anchors.numel() + sum(q.numel() for quads in subbands for q in quads)
-            flat = grid.reshape(-1)
-            packed, widths, nb = bitpack.pack_blocks(flat)
-            expanded = _expanded(packed, widths, nb, n)
-            sym = grid.reshape(b, -1)
-            counts = tpurans.encode_batch(sym)[1]
-            lanes, words = counts.shape[1], int(counts.sum())
-            cells = b * lanes * -(-sym.shape[1] // lanes)
-            # (kernel, kernel call, plain call, bytes each input read once and
-            # each output written once, integer operations estimated from
-            # the kernel's source per element)
-            for kernel, kern, plain, io_bytes, ops in (
-                ("K1", lambda: cuda_codec.encode_plane(img, 4, table),
-                 lambda: pyramid.encode_plane(img, 4, table), 2 * n + lossy, 12 * n),
-                ("K2", lambda: cuda_codec.decode_plane(grid, 4),
-                 lambda: pyramid.decode_plane(grid, 4), 2 * n, 8 * n),
-                ("K3", lambda: cuda_codec.encode_subbands(img, 4, table),
-                 lambda: pyramid.encode_subbands(img, 4, table), n + canvas + lossy, 12 * canvas),
-                ("K4", lambda: cuda_codec.assemble_grid(anchors, subbands, hw),
-                 lambda: pyramid.assemble_grid(anchors, subbands, hw), canvas + n, 10 * n),
-                ("K5", lambda: cuda_codec.decode_subbands(anchors, subbands, hw, 4),
-                 lambda: pyramid.decode_subbands(anchors, subbands, hw, 4), canvas + n, 8 * canvas),
-                ("K6", lambda: bitpack.pack_blocks(flat), lambda: bitpack.pack_plain(flat),
-                 n + packed.numel() + 4 * nb, 30 * packed.numel()),
-                ("K7", lambda: bitpack.unpack_blocks(expanded),
-                 lambda: bitpack.unpack_plain(expanded), 2 * expanded.numel(),
-                 30 * expanded.numel()),
-                ("X1", lambda: tpurans.encode_batch(sym), lambda: tpurans.encode_plain(sym),
-                 n + 4 * b * (256 + 2 * lanes) + 2 * words, 22 * cells),
-                ("K8", lambda: vpucal.vpucal_chain(img, "mix3", K8_ROUNDS),
-                 lambda: vpucal.vpucal_plain(img, "mix3", K8_ROUNDS), 2 * n, 3 * K8_ROUNDS * n),
-            ):
-                # The kernel's trace first: the plain versions launch many
-                # kernels, after which the profiler's traces drop records.
+        lossy = n if table is not None else 0
+        canvas = anchors.numel() + sum(q.numel() for quads in subbands for q in quads)
+        flat = grid.reshape(-1)
+        packed, widths, nb = bitpack.pack_blocks(flat)
+        expanded = _expanded(packed, widths, nb, n)
+        sym = grid.reshape(b, -1)
+        counts = tpurans.encode_batch(sym)[1]
+        lanes, words = counts.shape[1], int(counts.sum())
+        cells = b * lanes * -(-sym.shape[1] // lanes)
+        # (kernel, kernel call, plain call, bytes each input read once and
+        # each output written once, integer operations estimated from
+        # the kernel's source per element)
+        for kernel, kern, plain, io_bytes, ops in (
+            ("K1", lambda: cuda_codec.encode_plane(img, 4, table),
+             lambda: pyramid.encode_plane(img, 4, table), 2 * n + lossy, 12 * n),
+            ("K2", lambda: cuda_codec.decode_plane(grid, 4),
+             lambda: pyramid.decode_plane(grid, 4), 2 * n, 8 * n),
+            ("K3", lambda: cuda_codec.encode_subbands(img, 4, table),
+             lambda: pyramid.encode_subbands(img, 4, table), n + canvas + lossy, 12 * canvas),
+            ("K4", lambda: cuda_codec.assemble_grid(anchors, subbands, hw),
+             lambda: pyramid.assemble_grid(anchors, subbands, hw), canvas + n, 10 * n),
+            ("K5", lambda: cuda_codec.decode_subbands(anchors, subbands, hw, 4),
+             lambda: pyramid.decode_subbands(anchors, subbands, hw, 4), canvas + n, 8 * canvas),
+            ("K6", lambda: bitpack.pack_blocks(flat), lambda: bitpack.pack_plain(flat),
+             n + packed.numel() + 4 * nb, 30 * packed.numel()),
+            ("K7", lambda: bitpack.unpack_blocks(expanded),
+             lambda: bitpack.unpack_plain(expanded), 2 * expanded.numel(),
+             30 * expanded.numel()),
+            ("X1", lambda: tpurans.encode_batch(sym), lambda: tpurans.encode_plain(sym),
+             n + 4 * b * (256 + 2 * lanes) + 2 * words, 22 * cells),
+            ("K8", lambda: vpucal.vpucal_chain(img, "mix3", K8_ROUNDS),
+             lambda: vpucal.vpucal_plain(img, "mix3", K8_ROUNDS), 2 * n, 3 * K8_ROUNDS * n),
+        ):
+            # The kernel's trace first: the plain versions launch many
+            # kernels, after which the profiler's traces drop records.
+            if kernel in ("K2", "K5"):
+                dk, launched = early[kernel, shape, preset]
+            else:
                 dk, launched = _device_trace(kern)
-                # Plain, kernel, kernel, plain: compare within one call.
-                p1, k1 = _time(plain), _time(kern)
-                k2, p2 = _time(kern), _time(plain)
-                key = (kernel, "x".join(map(str, shape)), preset.name.lower())
-                k, p = statistics.median(k1 + k2), statistics.median(p1 + p2)
-                bound_ms, bound_by = _bound(io_bytes, ops, peak_ops)
-                rows[key] = {"ms": k, "plain_ms": p, "bound_ms": bound_ms, "bound_by": bound_by}
-                what = f"mix3 k={K8_ROUNDS}" if kernel == "K8" else f"L4 {key[2]}"
-                print(f"time {kernel} {REPLACES[kernel][0]} {key[1]} {what}: kernel "
-                      f"median {k:.4f} ms [{min(k1 + k2):.4f}..{max(k1 + k2):.4f}], plain "
-                      f"median {p:.4f} ms [{min(p1 + p2):.4f}..{max(p1 + p2):.4f}], "
-                      f"{2 * REPEATS} runs each, L2 flushed; bound {bound_ms:.4f} ms by "
-                      f"{bound_by} ({io_bytes} B, {ops} ops) [{card}]")
-                # The event window above includes the wrapper's host time
-                # whenever the card finishes first; the profiler's device
-                # time does not.  The plain versions are not traced: X1's
-                # launches a kernel per symbol row, and after a trace of
-                # that size later traces drop records.
-                rows[key].update(device_ms=dk, device_launches=launched)
-                count = ("launches not measured" if launched is None
-                         else f"{launched:g} device launch(es) a call")
-                print(f"device {kernel} {key[1]} {what}: kernel {_shown(dk, k)}, "
-                      f"torch.profiler mean of {REPEATS} calls; {count} [{card}]")
-            # X1's histogram alone, against the one PyTorch call that
-            # computes a histogram (over all planes at once when b > 1).
-            hist = _device_ms(lambda: tpurans.encode_batch(sym), "rans_histogram")
-            lib_ms = statistics.median(_time(lambda: torch.bincount(flat, minlength=256)))
-            lib_dev = _device_ms(lambda: torch.bincount(flat, minlength=256))
-            rows[("X1", key[1], key[2])].update(histogram_device_ms=hist, bincount_ms=lib_ms)
-            print(f"histogram {key[1]} L4 {key[2]}: X1 rans_histogram device "
-                  f"{'not measured' if hist is None else f'{hist:.4f} ms'}; torch.bincount "
-                  f"event median {lib_ms:.4f} ms, device "
-                  f"{'not measured' if lib_dev is None else f'{lib_dev:.4f} ms'} [{card}]")
+            # Plain, kernel, kernel, plain: compare within one call.
+            p1, k1 = _time(plain), _time(kern)
+            k2, p2 = _time(kern), _time(plain)
+            key = (kernel, "x".join(map(str, shape)), preset.name.lower())
+            k, p = statistics.median(k1 + k2), statistics.median(p1 + p2)
+            bound_ms, bound_by = _bound(io_bytes, ops, peak_ops)
+            rows[key] = {"ms": k, "plain_ms": p, "bound_ms": bound_ms, "bound_by": bound_by}
+            what = f"mix3 k={K8_ROUNDS}" if kernel == "K8" else f"L4 {key[2]}"
+            print(f"time {kernel} {REPLACES[kernel][0]} {key[1]} {what}: kernel "
+                  f"median {k:.4f} ms [{min(k1 + k2):.4f}..{max(k1 + k2):.4f}], plain "
+                  f"median {p:.4f} ms [{min(p1 + p2):.4f}..{max(p1 + p2):.4f}], "
+                  f"{2 * REPEATS} runs each, L2 flushed; bound {bound_ms:.4f} ms by "
+                  f"{bound_by} ({io_bytes} B, {ops} ops) [{card}]")
+            # The event window above includes the wrapper's host time
+            # whenever the card finishes first; the profiler's device
+            # time does not.  The plain versions are not traced: X1's
+            # launches a kernel per symbol row, and after a trace of
+            # that size later traces drop records.
+            rows[key].update(device_ms=dk, device_launches=launched)
+            count = ("launches not measured" if launched is None
+                     else f"{launched:g} device launch(es) a call")
+            print(f"device {kernel} {key[1]} {what}: kernel {_shown(dk, k)}, "
+                  f"torch.profiler mean of {REPEATS} calls; {count} [{card}]")
+        # X1's histogram alone, against the one PyTorch call that
+        # computes a histogram (over all planes at once when b > 1).
+        hist = _device_ms(lambda: tpurans.encode_batch(sym), "rans_histogram")
+        lib_ms = statistics.median(_time(lambda: torch.bincount(flat, minlength=256)))
+        lib_dev = _device_ms(lambda: torch.bincount(flat, minlength=256))
+        rows[("X1", key[1], key[2])].update(histogram_device_ms=hist, bincount_ms=lib_ms)
+        print(f"histogram {key[1]} L4 {key[2]}: X1 rans_histogram device "
+              f"{'not measured' if hist is None else f'{hist:.4f} ms'}; torch.bincount "
+              f"event median {lib_ms:.4f} ms, device "
+              f"{'not measured' if lib_dev is None else f'{lib_dev:.4f} ms'} [{card}]")
     return rows
+
+
+def decode_launches(rng, card: str) -> None:
+    """Phase 8, K2's and K5's device launches a call at 1080x1920: one at
+    L4 and for K5's preview at upto 2, 1 + 8 - DECODE_FINE_LEVELS at L8."""
+    img = torch.from_numpy(_natural_plane(rng, (1080, 1920))).to(DEVICE)
+    fine = cuda_codec.DECODE_FINE_LEVELS
+    shown = []
+    for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
+        for levels in (4, 8):
+            grid = cuda_codec.encode_plane(img, levels, _table(preset))[0]
+            anchors, subbands, _ = cuda_codec.encode_subbands(img, levels, _table(preset))
+            calls = [("K2", lambda: cuda_codec.decode_plane(grid, levels), levels),
+                     ("K5", lambda: cuda_codec.decode_subbands(anchors, subbands, img.shape,
+                                                               levels), levels),
+                     ("K5 preview 2", lambda: cuda_codec.decode_preview(
+                         anchors, subbands[:2], img.shape, levels, 2), 2)]
+            for name, fn, upto in calls:
+                n = _device_trace(fn)[1]
+                want = 1 + max(upto - fine, 0)
+                _check(n == want, f"{name} {preset.name.lower()} L{levels}: {n} device "
+                                  f"launches, {want} expected")
+                shown.append(f"{name} {preset.name.lower()} L{levels} {n:g}")
+    print(f"K2/K5 device launches a call at 1080x1920 (torch.profiler): {', '.join(shown)} "
+          f"[{card}]")
 
 
 def k1_launches(rng, card: str) -> None:
@@ -1045,7 +1095,8 @@ def main() -> int:
         print(log.read_text().rstrip())
         for name, info in chip_probe.ptxas_summary(
                 log.read_text(), ("encode_lossless", "encode_tiles", "encode_level",
-                                  "rans_histogram", "rans_normalize", "rans_encode_lanes")).items():
+                                  "decode_tiles", "rans_histogram", "rans_normalize",
+                                  "rans_encode_lanes")).items():
             print(f"ptxas {name}: {info}")
     t0 = time.perf_counter()
     _check(native.available(), "the native coders (make -C native) did not build or load")
@@ -1055,6 +1106,9 @@ def main() -> int:
     # Early, while the profiler holds few records: late in a process its
     # traces drop some (PERF.md section 6).
     k1_launches(np.random.default_rng([SEED, 1]), card)
+    decode_launches(np.random.default_rng([SEED, 2]), card)
+    inputs = timing_inputs()
+    early = decode_device_times(inputs, card)
     rng = np.random.default_rng(SEED)
     worst = compare_kernels(rng)
     worst.update(compare_fast_kernels(rng))
@@ -1108,7 +1162,7 @@ def main() -> int:
           f"{rates['mix3x16']['ops_per_s'] / 1e12:.3f} T op/s at 3 op/round; K8 SASS rates "
           f"(T instr/s): {shown}; the bounds use {peak_ops / 1e12:.3f} T op/s [{card}]")
 
-    rows = timings(rng, card, peak_ops)
+    rows = timings(inputs, card, peak_ops, early)
     chain = _x1_chain(mhz)
     if chain:
         print(f"X1 lanes loop ({chain['function']}): {chain['loop_instructions']} SASS "

@@ -70,7 +70,25 @@
 // indices that differ across a warp then cost no constant-memory replays,
 // and calls on any streams may use any tables at once.
 //
-// K2-K5 keep one launch per level, one thread per cell of the `step`
+// K2 and K5 are the lossy K1's design mirrored, one kernel for both
+// (decode_tiles): the finest F = min(L, fine) levels (K5: min(upto, fine))
+// run in one launch of 2-D tiles with the same one-cell right and bottom
+// halo, decoded in place in one shared region (a position holds its
+// residual until its level turns it into its pixel), and each coarser
+// level is one launch, the first also storing the anchors.  At L <= F
+// (upto <= F, upto = 0 included) the whole decode is one launch.  They
+// differ in the loader only: K2 reads its residuals from the grid in
+// 16-byte pieces, four in flight a thread, as lossy K1 reads its source;
+// K5 gathers them from the quads of the F finest levels, each quad row's
+// segment over the region read as 16-byte aligned pieces, four in flight,
+// its bytes placed at their pixels, the anchors' in the same round.  The
+// lattice is then the coarse decode or the anchors, and the levels, the
+// finest on 8-byte words, and the write are the same code.  A decode tile
+// moves 2 bytes a pixel, lossy K1's 3, and reads no table.  A call that
+// cuts few tiles, as a small preview does, is one block's latency end to
+// end, so the wrappers pick smaller tiles for it (cuda_codec.decode_tile).
+//
+// K3 keeps one launch per level, one thread per cell of the `step`
 // lattice (a level writes only positions off its lattice and reads only
 // positions on it, so a launch per level is race-free), a thread reading
 // 4 corners and coding up to 3 pixels; launches on one stream order the
@@ -92,12 +110,12 @@ struct QTable {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileThreads = 256;  // threads of a block of lossy K1's tiles
+constexpr int kTileThreads = 256;  // threads of a block of the tiles of lossy K1, K2 and K5
 constexpr int kMaxGridY = 65535;  // batch planes per launch
 // Dims are at most 2^30 (the wrapper checks), so depths stop at 30.
 constexpr int kMaxLevels = 31;
 constexpr int kRun = 16;          // pixels of a row a lossless K1 thread codes
-constexpr int kMaxFine = 5;       // the tiled levels of lossy K1 at most
+constexpr int kMaxFine = 5;       // the tiled levels of lossy K1, K2 and K5 at most
 constexpr int kMaxSharedBytes = 227 * 1024;
 
 enum Predictor { kCrossed = 0, kLeftTop = 1 };
@@ -163,22 +181,6 @@ KTable ktable(const QTable& table) {
 // memory); the caller synchronizes.
 __device__ __forceinline__ void load_table(uint8_t* qt, const KTable& table) {
   if (threadIdx.x < 16) reinterpret_cast<uint4*>(qt)[threadIdx.x] = table.v[threadIdx.x];
-}
-
-// Anchors: dst0[k] = dst1[k] = src[k] on the `step` lattice (dst1 may be
-// null).  One thread per cell.
-__global__ void copy_anchors(const uint8_t* __restrict__ src,
-                             uint8_t* __restrict__ dst0,
-                             uint8_t* __restrict__ dst1, int h, int w,
-                             int step, int wc, long long cells) {
-  const long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= cells) return;
-  const long long plane = (long long)blockIdx.y * h * w;
-  const long long k =
-      plane + (long long)(cell / wc) * step * w + (long long)(cell % wc) * step;
-  const uint8_t v = src[k];
-  dst0[k] = v;
-  if (dst1 != nullptr) dst1[k] = v;
 }
 
 // -- K1, lossless: the whole pyramid in one launch ---------------------------
@@ -465,6 +467,60 @@ __device__ __forceinline__ void finest_level_words(uint8_t* rc, uint8_t* sc, int
   }
 }
 
+// Rows 0..rh of a region of plane p whose origin is (y0, x0), pitch / 16
+// pieces of 16 bytes a row, one piece a thread at a time: `store(o, v)`
+// gets each piece's offset in the shared region and its bytes, where a
+// position outside the plane reads 0.  Four pieces a round, all read
+// before any is stored, so the reads' latencies overlap.  VEC: w % 16 == 0
+// and p on a 16-byte boundary.
+template <bool VEC, typename Store>
+__device__ __forceinline__ void load_region(const uint8_t* __restrict__ p, int h, int w,
+                                            int y0, int x0, int rh, int pitch, Store store) {
+  for (Walk it(pitch / 16); it.r <= rh;) {
+    uint4 v[4];
+    int o[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u, it.next()) {
+      o[u] = -1;
+      if (it.r > rh) continue;
+      const int gy = y0 + it.r, gx = x0 + 16 * it.c;
+      o[u] = it.r * pitch + 16 * it.c;
+      const long long k = (long long)gy * w + gx;
+      if (VEC && gy < h && gx + 16 <= w) {
+        v[u] = *reinterpret_cast<const uint4*>(p + k);
+      } else {
+        uint32_t b[4] = {0u, 0u, 0u, 0u};
+        for (int j = 0; j < 16; ++j)
+          if (gy < h && gx + j < w) b[j >> 2] |= (uint32_t)p[k + j] << (8 * (j & 3));
+        v[u] = make_uint4(b[0], b[1], b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (o[u] >= 0) store(o[u], v[u]);
+  }
+}
+
+// The tile's own pixels, rows 0..th and columns 0..tw of the shared region
+// (origin (y0, x0), rows `pitch` bytes apart), to plane p: 16 bytes a
+// thread where they lie whole.  `store(k, o)` writes the 16-byte piece at
+// shared offset o to plane offset k; `store_byte(k, o)` one byte.
+template <bool VEC, typename Store, typename StoreByte>
+__device__ __forceinline__ void write_tile(int h, int w, int y0, int x0, int th, int tw,
+                                           int pitch, Store store, StoreByte store_byte) {
+  for (Walk it(tw / 16); it.r < th; it.next()) {
+    const int gy = y0 + it.r, gx = x0 + 16 * it.c;
+    if (gy >= h || gx >= w) continue;
+    const long long k = (long long)gy * w + gx;
+    const int o = it.r * pitch + 16 * it.c;
+    if (VEC && gx + 16 <= w) {
+      store(k, o);
+    } else {
+      for (int j = 0; j < 16 && gx + j < w; ++j) store_byte(k + j, o + j);
+    }
+  }
+}
+
 // The finest `fine` levels of one th x tw tile (blockIdx.x; tiles_x a row
 // of tiles) of plane blockIdx.y, th and tw multiples of 16 and of 2^fine.
 // `coarse`: coarser levels ran before, so the 2^fine lattice holds their
@@ -490,37 +546,11 @@ __global__ void __launch_bounds__(kTileThreads)
   const int x0 = (int)(blockIdx.x % tiles_x) * tw;
 
   load_table(qt, table);
-  // The source, 16 bytes a thread; a position outside the plane reads 0,
-  // and the reconstruction is 0 until a level writes it.
-  const int pieces = pitch / 16;
-  for (Walk it(pieces); it.r <= rh;) {
-    // Four pieces a round, all read before any is stored, so the reads'
-    // latencies overlap.
-    uint4 v[4];
-    int o[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u, it.next()) {
-      o[u] = -1;
-      if (it.r > rh) continue;
-      const int gy = y0 + it.r, gx = x0 + 16 * it.c;
-      o[u] = it.r * pitch + 16 * it.c;
-      const long long k = (long long)gy * w + gx;
-      if (VEC && gy < h && gx + 16 <= w) {
-        v[u] = *reinterpret_cast<const uint4*>(src + k);
-      } else {
-        uint32_t b[4] = {0u, 0u, 0u, 0u};
-        for (int j = 0; j < 16; ++j)
-          if (gy < h && gx + j < w) b[j >> 2] |= (uint32_t)src[k + j] << (8 * (j & 3));
-        v[u] = make_uint4(b[0], b[1], b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      if (o[u] < 0) continue;
-      *reinterpret_cast<uint4*>(rc + o[u]) = make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(sc + o[u]) = v[u];
-    }
-  }
+  // The source; the reconstruction is 0 until a level writes it.
+  load_region<VEC>(src, h, w, y0, x0, rh, pitch, [&](int o, uint4 v) {
+    *reinterpret_cast<uint4*>(rc + o) = make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(sc + o) = v;
+  });
   __syncthreads();
   // The 2^fine lattice over the region, edges included.  After coarser
   // levels it is their reconstruction, and their grid values replace the
@@ -587,28 +617,26 @@ __global__ void __launch_bounds__(kTileThreads)
     finest_level_words<PRED>(rc, sc, pitch, rh, rw, qt);
     __syncthreads();
   }
-  // The tile's own pixels, 16 bytes a thread where they lie whole.
-  for (Walk it(tw / 16); it.r < th; it.next()) {
-    const int gy = y0 + it.r, gx = x0 + 16 * it.c;
-    if (gy >= h || gx >= w) continue;
-    const long long k = (long long)gy * w + gx;
-    const int o = it.r * pitch + 16 * it.c;
-    if (VEC && gx + 16 <= w) {
-      *reinterpret_cast<uint4*>(grid + k) = *reinterpret_cast<const uint4*>(sc + o);
-      *reinterpret_cast<uint4*>(recon + k) = *reinterpret_cast<const uint4*>(rc + o);
-    } else {
-      for (int j = 0; j < 16 && gx + j < w; ++j) {
-        grid[k + j] = sc[o + j];
-        recon[k + j] = rc[o + j];
-      }
-    }
-  }
+  write_tile<VEC>(
+      h, w, y0, x0, th, tw, pitch,
+      [&](long long k, int o) {
+        *reinterpret_cast<uint4*>(grid + k) = *reinterpret_cast<const uint4*>(sc + o);
+        *reinterpret_cast<uint4*>(recon + k) = *reinterpret_cast<const uint4*>(rc + o);
+      },
+      [&](long long k, int o) {
+        grid[k] = sc[o];
+        recon[k] = rc[o];
+      });
 }
 
-// K2, one level.
+// K2, one coarse level: one thread per cell of the `step` lattice decodes
+// its up to 3 refined pixels.  The first level (`anchors`) also stores the
+// anchors, its cells' top-left corners, and reads its corners from the
+// grid, which holds the anchors raw.
 template <int PRED>
 __global__ void decode_level(const uint8_t* __restrict__ grid, uint8_t* out,
-                             int h, int w, int step, int wc, long long cells) {
+                             int h, int w, int step, int wc, long long cells,
+                             bool anchors) {
   const long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (cell >= cells) return;
   const long long plane = (long long)blockIdx.y * h * w;
@@ -617,7 +645,8 @@ __global__ void decode_level(const uint8_t* __restrict__ grid, uint8_t* out,
   const int y0 = (int)(cell / wc) * step;
   const int x0 = (int)(cell % wc) * step;
   const int sub = step >> 1;
-  const int pred = cell_prediction<PRED>(out, h, w, y0, x0, step);
+  if (anchors) out[(long long)y0 * w + x0] = grid[(long long)y0 * w + x0];
+  const int pred = cell_prediction<PRED>(anchors ? grid : out, h, w, y0, x0, step);
   const bool right = sub < w - x0;
   const bool down = sub < h - y0;
   const long long k = (long long)y0 * w + x0;
@@ -644,18 +673,6 @@ __global__ void pack_anchors(const uint8_t* __restrict__ src,
   const uint8_t v = src[k];
   anchors[(long long)blockIdx.y * cells + cell] = v;
   if (recon != nullptr) recon[k] = v;
-}
-
-// K5's anchors: the inverse of pack_anchors, out[k] = anchors[cell].
-__global__ void unpack_anchors(const uint8_t* __restrict__ anchors,
-                               uint8_t* __restrict__ out, int h, int w,
-                               int step, int wc, long long cells) {
-  const long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= cells) return;
-  const long long k = (long long)blockIdx.y * h * w +
-                      (long long)(cell / wc) * step * w +
-                      (long long)(cell % wc) * step;
-  out[k] = anchors[(long long)blockIdx.y * cells + cell];
 }
 
 // Codes one refined pixel of K3 into its quad at qk; a pixel in the
@@ -708,10 +725,14 @@ __global__ void encode_sub_level(const uint8_t* __restrict__ src,
   emit<LOSSLESS>(src, recon, q11, qk, down && right, kd + sub, pred, qt);
 }
 
-// K5, one level: K2's decode_level with the residuals read from the quads
-// (qw columns, qplane cells a plane) instead of the grid.
+// K5, one coarse level: K2's decode_level with the residuals read from
+// the quads (qw columns, qplane cells a plane) instead of the grid.  The
+// first level (`anchors` not null: the packed anchors, one per cell, wc a
+// row) also unpacks the anchors to their pixels and reads its corners from
+// them.
 template <int PRED>
-__global__ void decode_sub_level(const uint8_t* __restrict__ q01,
+__global__ void decode_sub_level(const uint8_t* __restrict__ anchors,
+                                 const uint8_t* __restrict__ q01,
                                  const uint8_t* __restrict__ q10,
                                  const uint8_t* __restrict__ q11, uint8_t* out,
                                  int h, int w, int step, int wc,
@@ -724,10 +745,18 @@ __global__ void decode_sub_level(const uint8_t* __restrict__ q01,
   const int y0 = (int)(cell / wc) * step;
   const int x0 = (int)(cell % wc) * step;
   const int sub = step >> 1;
-  const int pred = cell_prediction<PRED>(out, h, w, y0, x0, step);
+  const long long k = (long long)y0 * w + x0;
+  int pred;
+  if (anchors != nullptr) {
+    const uint8_t* a = anchors + (long long)blockIdx.y * cells + cell;
+    const bool r = step < w - x0, d = step < h - y0;
+    out[k] = a[0];
+    pred = tree<PRED>(a[0], r ? a[1] : 0, d ? a[wc] : 0, (r && d) ? a[wc + 1] : 0);
+  } else {
+    pred = cell_prediction<PRED>(out, h, w, y0, x0, step);
+  }
   const bool right = sub < w - x0;
   const bool down = sub < h - y0;
-  const long long k = (long long)y0 * w + x0;
   if (right) out[k + sub] = (uint8_t)((pred + q01[qk]) & 255);
   if (down) {
     const long long kd = k + (long long)sub * w;
@@ -769,6 +798,375 @@ __global__ void assemble_pixels(const uint8_t* __restrict__ anchors, Quads qs,
                                 (x >> (t + 1))];
   }
   grid[b * pixels + i] = v;
+}
+
+// -- K2 and K5: coarse levels one launch each, the finest F tiled -------------
+
+enum Loader { kGrid = 0, kQuads = 1 };
+
+// The decode tiles' shared region: rows 0..th + S, columns 0..tw + S
+// (S = 2^fine), each row round16(tw + S + 1) bytes.
+__host__ __device__ __forceinline__ int decode_shared_bytes(int th, int tw, int fine) {
+  const int s = 1 << fine;
+  return (th + s + 1) * round16(tw + s + 1);
+}
+
+// The quads of K5's tiled levels, passed by value, in tile order: level
+// step 2^(t+1) (the archive's level upto - t - 1) has q[t][0..2], its
+// q01, q10 and q11.
+struct TileQuads {
+  const uint8_t* q[kMaxFine][3];
+};
+
+// Where K5's values lie for plane b, kept in shared memory so that no
+// thread indexes the kernel's parameters at run time: level step 2^(t+1), the
+// archive's level upto - t - 1, has quads base[t][0..2] (q01, q10, q11),
+// qw[t] bytes a row; the 2^fine lattice point (gy, gx) is
+// lattice[(gy >> shift) * pitch + (gx >> shift)]: the coarse decode in
+// `out` (shift 0, pitch w), or the packed anchors (shift fine, pitch aw).
+struct QuadTable {
+  const uint8_t* base[kMaxFine][3];
+  int qw[kMaxFine];
+  const uint8_t* lattice;
+  int pitch, shift;
+};
+
+// The first 3 * fine + 1 threads fill the table (ah x aw anchors a plane,
+// `out` plane b's), each reading its parameter at an index known when
+// compiled; the caller synchronizes.
+__device__ __forceinline__ void load_quad_table(QuadTable& tab, const TileQuads& tq,
+                                                const uint8_t* anchors, const uint8_t* out,
+                                                bool coarse, long long b, int w, int fine,
+                                                int upto, int ah, int aw) {
+  const int i = threadIdx.x;
+  if (i == 3 * fine) {
+    tab.lattice = coarse ? out : anchors + b * ah * aw;
+    tab.pitch = coarse ? w : aw;
+    tab.shift = coarse ? 0 : fine;
+  }
+#pragma unroll
+  for (int j = 0; j < 3 * kMaxFine; ++j) {
+    if (i != j || j >= 3 * fine) continue;
+    const int t = j / 3, which = j % 3;
+    const int level = upto - t - 1;
+    const int qw = aw << level;
+    tab.base[t][which] = tq.q[t][which] + b * ((long long)ah << level) * qw;
+    if (which == 0) tab.qw[t] = qw;
+  }
+}
+
+// Quad `which` of level step 2^(t+1) at pixel (gy, gx): its element
+// (gy >> (t+1), gx >> (t+1)).  Only an address: t may name no level.
+__device__ __forceinline__ const uint8_t* quad_at(const QuadTable& tab, int t, int which, int gy,
+                                                  int gx) {
+  t = t < kMaxFine - 1 ? t : kMaxFine - 1;
+  return tab.base[t][which] + (long long)(gy >> (t + 1)) * tab.qw[t] + (gx >> (t + 1));
+}
+
+// Pixel (gy, gx)'s value before the tiled levels: its residual, read from
+// its quad, at the `fine` finest levels, the lattice's value on the 2^fine
+// lattice, 0 outside the plane.  Its level is the lowest set bit t of
+// gy | gx, as in K4.
+__device__ __forceinline__ uint32_t quad_byte(const QuadTable& tab, int h, int w, int gy, int gx,
+                                              int fine) {
+  if (gy >= h || gx >= w) return 0u;
+  const int yx = gy | gx;
+  const int t = yx == 0 ? fine : min(__ffs(yx) - 1, fine);
+  if (t >= fine)
+    return tab.lattice[(long long)(gy >> tab.shift) * tab.pitch + (gx >> tab.shift)];
+  return *quad_at(tab, t, ((gy >> t) & 1) * 2 + ((gx >> t) & 1) - 1, gy, gx);
+}
+
+// N consecutive bytes (1, 2, 4 or 8) of a quad row, little-endian: one
+// load where p is aligned to N, else byte by byte.
+template <int N>
+__device__ __forceinline__ uint64_t quad_bytes(const uint8_t* p) {
+  if ((reinterpret_cast<uintptr_t>(p) & (N - 1)) == 0) {
+    if (N == 8) return *reinterpret_cast<const uint64_t*>(p);
+    if (N == 4) return *reinterpret_cast<const uint32_t*>(p);
+    if (N == 2) return *reinterpret_cast<const uint16_t*>(p);
+    return *p;
+  }
+  uint64_t v = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) v |= (uint64_t)p[i] << (8 * i);
+  return v;
+}
+
+// Byte interleaves: a0 b0 a1 b1 ... of two runs of N bytes each.
+__device__ __forceinline__ uint32_t zip2(uint32_t a, uint32_t b) {
+  return __byte_perm(a, b, 0x5140);
+}
+__device__ __forceinline__ uint64_t zip4(uint32_t a, uint32_t b) {
+  return (uint64_t)__byte_perm(a, b, 0x7362) << 32 | __byte_perm(a, b, 0x5140);
+}
+__device__ __forceinline__ uint4 zip8(uint64_t a, uint64_t b) {
+  const uint32_t al = (uint32_t)a, ah = (uint32_t)(a >> 32);
+  const uint32_t bl = (uint32_t)b, bh = (uint32_t)(b >> 32);
+  return make_uint4(__byte_perm(al, bl, 0x5140), __byte_perm(al, bl, 0x7362),
+                    __byte_perm(ah, bh, 0x5140), __byte_perm(ah, bh, 0x7362));
+}
+
+// A run of 16 pixels of row gy from column gx (a multiple of 16), all
+// inside the plane, reads 2 to 5 segments of quad rows.  Let ty be the
+// lowest set bit of gy (4 for 4 or more).  The columns whose lowest set
+// bit C lies below ty are q01 of level step 2^(C+1), 8 >> C consecutive
+// bytes of one quad row (slot C); the columns at or above ty are q11
+// (slot ty) and q10 (slot 4) of step 2^(ty+1), 8 >> ty bytes each, column 0
+// among the q10s; a row with ty = 4 reads column 0 alone (slot 4, the
+// lattice's value where it is a lattice point).  At 1 <= fine < 4 a row
+// with ty >= fine is a lattice row: its columns at or above `fine` are the
+// 16 >> fine lattice points, consecutive bytes of one row of the packed
+// anchors, read in slot `fine` (else unused) in the same round as the
+// quads; from the coarse decode in `out` they read 0 here, and
+// fill_lattice writes them.  run_loads issues the loads, run_compose
+// interleaves them, so that a thread has the loads of several runs in
+// flight before it waits on any.
+struct RunLoads {
+  uint64_t slot[5];
+  int ty;  // -1: the run leaves the plane, and is read byte by byte
+};
+
+template <int C>
+__device__ __forceinline__ uint64_t run_slot(const QuadTable& tab, int ty, int gy, int gx,
+                                             int fine) {
+  if constexpr (C >= 1) {
+    if (C == fine && ty >= fine && tab.shift == fine)  // a lattice row, from the anchors
+      return quad_bytes<(16 >> C)>(tab.lattice + (long long)(gy >> C) * tab.pitch + (gx >> C));
+  }
+  if (C >= fine || C > ty) return 0;
+  return quad_bytes<(8 >> C)>(quad_at(tab, C, C < ty ? 0 : 2, gy, gx));
+}
+
+__device__ __forceinline__ RunLoads run_loads(const QuadTable& tab, int h, int w, int gy, int gx,
+                                              int fine) {
+  RunLoads rl;
+  rl.ty = -1;
+  if (gy >= h || gx + 16 > w) return rl;
+  const int ty = gy == 0 ? 4 : min(__ffs(gy) - 1, 4);
+  rl.ty = ty;
+  rl.slot[0] = run_slot<0>(tab, ty, gy, gx, fine);
+  rl.slot[1] = run_slot<1>(tab, ty, gy, gx, fine);
+  rl.slot[2] = run_slot<2>(tab, ty, gy, gx, fine);
+  rl.slot[3] = run_slot<3>(tab, ty, gy, gx, fine);
+  if (ty < 4) {
+    const uint8_t* p = quad_at(tab, ty, 1, gy, gx);
+    rl.slot[4] = ty >= fine ? 0
+                 : ty == 0  ? quad_bytes<8>(p)
+                 : ty == 1  ? quad_bytes<4>(p)
+                 : ty == 2  ? quad_bytes<2>(p)
+                            : quad_bytes<1>(p);
+  } else {
+    rl.slot[4] = quad_byte(tab, h, w, gy, gx, fine);
+  }
+  return rl;
+}
+
+// The run's columns whose lowest set bit is at least k, for k = 3 .. 0:
+// the columns of level k below the row's are the odd ones (slot k, q01),
+// interleaved with those of k + 1; at the row's level the q10s (slot 4)
+// with the q11s (slot k); the row with ty = 4 starts from its column 0.
+// In a lattice row at fine < 4 the columns at or above `fine` are slot
+// `fine` whole.
+__device__ __forceinline__ uint4 run_compose(const RunLoads& rl, int fine) {
+  const int ty = rl.ty;
+  const bool lattice = ty >= fine;
+  const uint32_t e3 = fine == 3 && lattice
+                          ? (uint32_t)rl.slot[3]
+                          : (uint32_t)(rl.slot[4] & 255u) | (uint32_t)(rl.slot[3] & 255u) << 8;
+  const uint32_t e2 = fine == 2 && lattice
+                          ? (uint32_t)rl.slot[2]
+                          : zip2(ty == 2 ? (uint32_t)rl.slot[4] : e3, (uint32_t)rl.slot[2]);
+  const uint64_t e1 = fine == 1 && lattice
+                          ? rl.slot[1]
+                          : zip4(ty == 1 ? (uint32_t)rl.slot[4] : e2, (uint32_t)rl.slot[1]);
+  return zip8(ty == 0 ? rl.slot[4] : e1, rl.slot[0]);
+}
+
+// K5's values over a tile's region (origin (y0, x0), rows 0..rh, pitch
+// / 16 runs of 16 bytes a row), gathered from the quads and the lattice
+// (`tab`): four runs a round, the loads of all four issued before any is
+// placed, each run then stored 16 bytes at once; a run that leaves the
+// plane is read byte by byte, 0 outside it.  The lattice is gathered too,
+// but for fine 0 and, at fine < 4, from the coarse decode.
+__device__ __forceinline__ void load_quads(uint8_t* rc, const QuadTable& tab, int h, int w,
+                                           int y0, int x0, int rh, int pitch, int fine) {
+  for (Walk it(pitch / 16); it.r <= rh;) {
+    RunLoads rl[4];
+    int o[4], gy[4], gx[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u, it.next()) {
+      o[u] = it.r <= rh ? it.r * pitch + 16 * it.c : -1;
+      gy[u] = y0 + it.r, gx[u] = x0 + 16 * it.c;
+      rl[u] = run_loads(tab, h, w, o[u] < 0 ? h : gy[u], gx[u], fine);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (o[u] < 0) continue;
+      uint4 v;
+      if (rl[u].ty >= 0) {
+        v = run_compose(rl[u], fine);
+      } else {
+        uint32_t r[4] = {0u, 0u, 0u, 0u};
+        for (int j = 0; j < 16; ++j)
+          r[j >> 2] |= quad_byte(tab, h, w, gy[u], gx[u] + j, fine) << (8 * (j & 3));
+        v = make_uint4(r[0], r[1], r[2], r[3]);
+      }
+      *reinterpret_cast<uint4*>(rc + o[u]) = v;
+    }
+  }
+}
+
+// The 2^fine lattice over the region, edges included: the coarse decode
+// from `out` (plane b's) when `coarse`, else K5's packed anchors (ah x aw a
+// plane); 0 outside the plane.  The caller synchronizes.
+template <int LOADER>
+__device__ __forceinline__ void fill_lattice(uint8_t* rc, const uint8_t* out,
+                                             const uint8_t* anchors, long long b, int h, int w,
+                                             int y0, int x0, int rh, int rw, int pitch, int fine,
+                                             int ah, int aw, bool coarse) {
+  const int S = 1 << fine;
+  for (Walk it(rw / S + 1); it.r <= rh / S; it.next()) {
+    const int r = it.r * S, c = it.c * S;
+    const int gy = y0 + r, gx = x0 + c;
+    const bool in = gy < h && gx < w;
+    if (LOADER == kGrid && !in) continue;  // the load left 0 there
+    rc[r * pitch + c] = !in      ? 0
+                        : coarse ? out[(long long)gy * w + gx]
+                                 : anchors[b * ah * aw + (long long)(gy >> fine) * aw + (gx >> fine)];
+  }
+}
+
+// The finest level (step 2) of a decode tile, rows `pitch` bytes apart:
+// a thread decodes 4 cells of a row pair, 8 columns, from 8-byte words.
+// Row 2r's even bytes are the corners and keep their values, so a
+// neighbour reading them while the word is rewritten reads the same
+// bytes.  Pixels outside the plane are decoded too: nothing reads them as
+// corners, and the tile's write leaves them out.
+template <int PRED>
+__device__ __forceinline__ void decode_finest_words(uint8_t* rc, int pitch, int rh, int rw) {
+  for (Walk it(rw / 8); it.r < rh / 2; it.next()) {
+    uint8_t* top = rc + 2 * it.r * pitch + 8 * it.c;
+    const uint2 ta = *reinterpret_cast<const uint2*>(top);
+    const uint2 ma = *reinterpret_cast<const uint2*>(top + pitch);
+    const uint2 ba = *reinterpret_cast<const uint2*>(top + 2 * pitch);
+    const int t8 = top[8], b8 = top[2 * pitch + 8];
+    const uint32_t t[2] = {ta.x, ta.y}, m[2] = {ma.x, ma.y}, bt[2] = {ba.x, ba.y};
+    uint32_t r0[2] = {ta.x, ta.y}, r1[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; i += 2) {
+      const int pred = tree<PRED>(byte8(t, i), i < 6 ? byte8(t, i + 2) : t8, byte8(bt, i),
+                                  i < 6 ? byte8(bt, i + 2) : b8);
+      set_byte8(r0, i + 1, pred + byte8(t, i + 1));
+      set_byte8(r1, i, pred + byte8(m, i));
+      set_byte8(r1, i + 1, pred + byte8(m, i + 1));
+    }
+    *reinterpret_cast<uint2*>(top) = make_uint2(r0[0], r0[1]);
+    *reinterpret_cast<uint2*>(top + pitch) = make_uint2(r1[0], r1[1]);
+  }
+}
+
+// The levels of steps S .. 2 of a region whose lattice and residuals are
+// in place, coarse to fine, a barrier after each: the finest in 8-byte
+// words (3/4 of the cells) where the region's rows are whole words, every
+// other level cell by cell, two cells a round with their reads before
+// their writes (the cells' pixels are distinct and none is a corner of
+// this level).
+template <int PRED>
+__device__ __forceinline__ void decode_region(uint8_t* rc, int h, int w, int y0, int x0, int rh,
+                                              int rw, int pitch, int S) {
+  const bool words = S >= 8;
+  for (int step = S; step >= (words ? 4 : 2); step >>= 1) {
+    const int sub = step >> 1;
+    const int rows = rh / step;
+    for (Walk it(rw / step); it.r < rows;) {
+      int pred[2], o[2][3], v[2][3];
+      bool in[2][3];
+#pragma unroll
+      for (int u = 0; u < 2; ++u, it.next()) {
+        const bool cell = it.r < rows;
+        const int ly = cell ? it.r * step : 0, lx = cell ? it.c * step : 0;
+        const uint8_t* c0 = rc + ly * pitch + lx;
+        pred[u] = tree<PRED>(c0[0], c0[step], c0[step * pitch], c0[step * pitch + step]);
+        const bool right = x0 + lx + sub < w, down = y0 + ly + sub < h;
+        o[u][0] = ly * pitch + lx + sub;
+        o[u][1] = (ly + sub) * pitch + lx;
+        o[u][2] = (ly + sub) * pitch + lx + sub;
+        in[u][0] = cell && right && y0 + ly < h;
+        in[u][1] = cell && down && x0 + lx < w;
+        in[u][2] = cell && right && down;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) v[u][j] = rc[o[u][j]];
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          if (in[u][j]) rc[o[u][j]] = (uint8_t)((pred[u] + v[u][j]) & 255);
+    }
+    __syncthreads();
+  }
+  if (words) {
+    decode_finest_words<PRED>(rc, pitch, rh, rw);
+    __syncthreads();
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void write_decoded(uint8_t* out, const uint8_t* rc, int h, int w,
+                                              int y0, int x0, int th, int tw, int pitch) {
+  write_tile<VEC>(
+      h, w, y0, x0, th, tw, pitch,
+      [&](long long k, int o) {
+        *reinterpret_cast<uint4*>(out + k) = *reinterpret_cast<const uint4*>(rc + o);
+      },
+      [&](long long k, int o) { out[k] = rc[o]; });
+}
+
+// The finest `fine` levels of one th x tw tile (blockIdx.x; tiles_x a row
+// of tiles) of plane b0 + blockIdx.y of the h x w output, th and tw
+// multiples of 16 and of 2^fine, decoded in place in one shared region: a
+// position holds its residual until its level turns it into its pixel.
+// LOADER kGrid (K2) reads the region's residuals from the grid, 16 bytes
+// a thread, four in flight; kQuads (K5) from the quads of the archive's
+// levels upto - fine .. upto - 1 and the lattice with them (load_quads).
+// Then the lattice where it was not loaded (fill_lattice, after a
+// barrier), the levels (decode_region) and the tile's own pixels,
+// 16 bytes a thread where they lie whole.  VEC: w % 16 == 0 and the
+// buffers read or written 16 bytes at a time on 16-byte boundaries.
+template <int PRED, int LOADER, bool VEC>
+__global__ void __launch_bounds__(kTileThreads)
+    decode_tiles(const uint8_t* __restrict__ grid, const uint8_t* __restrict__ anchors,
+                 TileQuads tq, uint8_t* out, int h, int w, int fine, int upto, int ah, int aw,
+                 bool coarse, int th, int tw, int tiles_x, int b0) {
+  extern __shared__ __align__(16) uint8_t rc[];
+  const int S = 1 << fine;
+  const int rh = th + S, rw = tw + S;  // the tile and its halo; rows and columns 0..rh, 0..rw
+  const int pitch = round16(rw + 1);
+  const long long b = (long long)b0 + blockIdx.y;
+  out += b * h * w;
+  const int y0 = (int)(blockIdx.x / tiles_x) * th;
+  const int x0 = (int)(blockIdx.x % tiles_x) * tw;
+  // K2's grid holds its anchors, K5 gathers its lattice but for fine 0 and,
+  // at fine < 4, from the coarse decode; else the lattice overwrites the
+  // loaded positions after a barrier.
+  const bool lattice = LOADER == kQuads ? fine == 0 || (coarse && fine < 4) : coarse;
+  if (LOADER == kGrid) {
+    load_region<VEC>(grid + b * h * w, h, w, y0, x0, rh, pitch,
+                     [&](int o, uint4 v) { *reinterpret_cast<uint4*>(rc + o) = v; });
+  } else {
+    __shared__ QuadTable tab;
+    load_quad_table(tab, tq, anchors, out, coarse, b, w, fine, upto, ah, aw);
+    __syncthreads();
+    load_quads(rc, tab, h, w, y0, x0, rh, pitch, fine);
+  }
+  if (lattice) {
+    __syncthreads();
+    fill_lattice<LOADER>(rc, out, anchors, b, h, w, y0, x0, rh, rw, pitch, fine, ah, aw, coarse);
+  }
+  __syncthreads();
+  decode_region<PRED>(rc, h, w, y0, x0, rh, rw, pitch, S);
+  write_decoded<VEC>(out, rc, h, w, y0, x0, th, tw, pitch);
 }
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
@@ -853,33 +1251,58 @@ cudaError_t encode_lossy_all(const uint8_t* src, uint8_t* grid, uint8_t* recon,
   });
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Whether th x tw tiles with `fine` tiled levels are refused: the kernels
+// take multiples of 16 and of 2^fine, fine <= kMaxFine.
+bool bad_tiling(int th, int tw, int fine) {
+  return fine < 0 || fine > kMaxFine || th <= 0 || tw <= 0 || th % 16 || tw % 16 ||
+         th % (1 << fine) || tw % (1 << fine);
+}
+
+// The tiled launch of K2 (LOADER kGrid) or K5 (kQuads) over the batch: the
+// finest f levels in th x tw tiles, a block a tile.
+template <int PRED, int LOADER>
+cudaError_t decode_tiled(const uint8_t* grid, const uint8_t* anchors, const TileQuads& tq,
+                         uint8_t* out, int batch, int h, int w, int f, int upto, int ah,
+                         int aw, bool coarse, int th, int tw, bool vec, cudaStream_t stream) {
+  const int tiles_x = (int)cdiv(w, tw);
+  const long long tiles = cdiv(h, th) * tiles_x;
+  const int smem = decode_shared_bytes(th, tw, f);
+  if (smem > kMaxSharedBytes || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kernel = vec ? decode_tiles<PRED, LOADER, true> : decode_tiles<PRED, LOADER, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  return over_batch(batch, [&](int b0, int nb) {
+    kernel<<<dim3((unsigned)tiles, nb), kTileThreads, smem, stream>>>(
+        grid, anchors, tq, out, h, w, f, upto, ah, aw, coarse, th, tw, tiles_x, b0);
+  });
+}
+
+// K2: the levels coarser than 2^F one launch each (the first also storing
+// the anchors), then the finest F = min(levels, fine) in one launch of
+// th x tw tiles; fine = 0 leaves every level a launch of its own.
 template <int PRED>
-cudaError_t decode_levels(const uint8_t* grid, uint8_t* out, int batch, int h,
-                          int w, int levels, cudaStream_t stream) {
+cudaError_t decode_all(const uint8_t* grid, uint8_t* out, int batch, int h, int w, int levels,
+                       int th, int tw, int fine, bool vec, cudaStream_t stream) {
   const long long plane = (long long)h * w;
-  for (int level = 0; level < levels; ++level) {
+  const int f = levels < fine ? levels : fine;
+  const int coarse = levels - f;
+  for (int level = 0; level < coarse; ++level) {
     const int step = 1 << (levels - level);
     const Lattice lat(h, w, step);
     const cudaError_t err = over_batch(batch, [&](int b0, int nb) {
       decode_level<PRED><<<dim3(lat.blocks(), nb), kThreads, 0, stream>>>(
-          grid + b0 * plane, out + b0 * plane, h, w, step, lat.wc, lat.cells);
+          grid + b0 * plane, out + b0 * plane, h, w, step, lat.wc, lat.cells, level == 0);
     });
     if (err != cudaSuccess) return err;
   }
-  return cudaSuccess;
-}
-
-cudaError_t anchors(const uint8_t* src, uint8_t* dst0, uint8_t* dst1, int batch,
-                    int h, int w, int levels, cudaStream_t stream) {
-  const long long plane = (long long)h * w;
-  const int step = 1 << levels;
-  const Lattice lat(h, w, step);
-  return over_batch(batch, [&](int b0, int nb) {
-    copy_anchors<<<dim3(lat.blocks(), nb), kThreads, 0, stream>>>(
-        src + b0 * plane, dst0 + b0 * plane,
-        dst1 == nullptr ? nullptr : dst1 + b0 * plane, h, w, step, lat.wc,
-        lat.cells);
-  });
+  if (coarse > 0 && f == 0) return cudaSuccess;
+  return decode_tiled<PRED, kGrid>(grid, nullptr, TileQuads{}, out, batch, h, w, f, 0, 0, 0,
+                                   coarse > 0, th, tw, vec, stream);
 }
 
 // K3's level loop.  Level l's canvas lattice has (ah << l) x (aw << l)
@@ -907,29 +1330,39 @@ cudaError_t encode_sub_levels(const uint8_t* src, uint8_t* const* quads,
   return cudaSuccess;
 }
 
-// K5's level loop on an h x w output (the preview's dims when upto is
-// below the archive's depth): its `upto` levels have steps 2^upto .. 2,
-// and level l reads the quads of the archive's level l.
+// K5 on an h x w output (the preview's dims when upto is below the
+// archive's depth), whose `upto` levels have steps 2^upto .. 2, level l
+// reading the archive's level-l quads: the levels coarser than 2^F one
+// launch each (the first also unpacking the anchors, ah x aw a plane),
+// then the finest F = min(upto, fine) in one launch of th x tw tiles.
 template <int PRED>
-cudaError_t decode_sub_levels(const uint8_t* const* quads, uint8_t* out,
-                              int batch, int h, int w, int upto, int ah,
-                              int aw, cudaStream_t stream) {
+cudaError_t decode_sub_all(const uint8_t* anchors, const Quads& qs, uint8_t* out, int batch,
+                           int h, int w, int upto, int ah, int aw, int th, int tw, int fine,
+                           bool vec, cudaStream_t stream) {
   const long long plane = (long long)h * w;
-  for (int level = 0; level < upto; ++level) {
+  const long long acells = (long long)ah * aw;
+  const int f = upto < fine ? upto : fine;
+  const int coarse = upto - f;
+  for (int level = 0; level < coarse; ++level) {
     const int step = 1 << (upto - level);
     const Lattice lat(h, w, step);
     const int qw = aw << level;
     const long long qplane = ((long long)ah << level) * qw;
-    const uint8_t* const* q = quads + 3 * level;
+    const uint8_t* const* q = qs.q + 3 * level;
     const cudaError_t err = over_batch(batch, [&](int b0, int nb) {
       const long long qo = b0 * qplane;
       decode_sub_level<PRED><<<dim3(lat.blocks(), nb), kThreads, 0, stream>>>(
-          q[0] + qo, q[1] + qo, q[2] + qo, out + b0 * plane, h, w, step,
-          lat.wc, lat.cells, qw, qplane);
+          level == 0 ? anchors + b0 * acells : nullptr, q[0] + qo, q[1] + qo, q[2] + qo,
+          out + b0 * plane, h, w, step, lat.wc, lat.cells, qw, qplane);
     });
     if (err != cudaSuccess) return err;
   }
-  return cudaSuccess;
+  if (coarse > 0 && f == 0) return cudaSuccess;
+  TileQuads tq = {};
+  for (int t = 0; t < f; ++t)
+    for (int which = 0; which < 3; ++which) tq.q[t][which] = qs.q[3 * (upto - t - 1) + which];
+  return decode_tiled<PRED, kQuads>(nullptr, anchors, tq, out, batch, h, w, f, upto, ah, aw,
+                                    coarse > 0, th, tw, vec, stream);
 }
 
 }  // namespace
@@ -953,19 +1386,14 @@ int hgi_encode(const void* src, void* grid, void* recon, QTable table, int lossy
   if ((predictor != kCrossed && predictor != kLeftTop) || levels < 0 ||
       levels >= kMaxLevels)
     return cudaErrorInvalidValue;
-  const auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
   if (!lossy) {
-    const bool vec = w % 16 == 0 && aligned(s) && aligned(g);
+    const bool vec = w % 16 == 0 && aligned16(s) && aligned16(g);
     return predictor == kCrossed
                ? encode_lossless_all<kCrossed>(s, g, batch, h, w, levels, vec, st)
                : encode_lossless_all<kLeftTop>(s, g, batch, h, w, levels, vec, st);
   }
-  if (fine < 0 || fine > kMaxFine || th <= 0 || tw <= 0 || th % 16 || tw % 16 ||
-      th % (1 << fine) || tw % (1 << fine))
-    return cudaErrorInvalidValue;
-  const bool vec = w % 16 == 0 && aligned(s) && aligned(g) && aligned(r);
+  if (bad_tiling(th, tw, fine)) return cudaErrorInvalidValue;
+  const bool vec = w % 16 == 0 && aligned16(s) && aligned16(g) && aligned16(r);
   const cudaError_t err =
       predictor == kCrossed
           ? encode_lossy_all<kCrossed>(s, g, r, ktable(table), batch, h, w, levels, th, tw,
@@ -976,20 +1404,23 @@ int hgi_encode(const void* src, void* grid, void* recon, QTable table, int lossy
   return cudaGetLastError();
 }
 
-// K2: grid and out are [batch, h, w] uint8 device buffers.
-int hgi_decode(const void* grid, void* out, int batch, int h, int w,
-               int levels, int predictor, void* stream) {
+// K2: grid and out are [batch, h, w] uint8 device buffers; `levels` is
+// the effective depth, whose finest min(levels, fine) levels run in th x tw
+// tiles (the rules of hgi_encode's).
+int hgi_decode(const void* grid, void* out, int batch, int h, int w, int levels,
+               int predictor, int th, int tw, int fine, void* stream) {
   const auto* g = static_cast<const uint8_t*>(grid);
   auto* o = static_cast<uint8_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || h <= 0 || w <= 0) return cudaSuccess;
-  if (predictor != kCrossed && predictor != kLeftTop)
+  if ((predictor != kCrossed && predictor != kLeftTop) || levels < 0 ||
+      levels >= kMaxLevels || bad_tiling(th, tw, fine))
     return cudaErrorInvalidValue;
-  cudaError_t err = anchors(g, o, nullptr, batch, h, w, levels, st);
-  if (err != cudaSuccess) return err;
-  err = predictor == kCrossed
-            ? decode_levels<kCrossed>(g, o, batch, h, w, levels, st)
-            : decode_levels<kLeftTop>(g, o, batch, h, w, levels, st);
+  const bool vec = w % 16 == 0 && aligned16(g) && aligned16(o);
+  const cudaError_t err =
+      predictor == kCrossed
+          ? decode_all<kCrossed>(g, o, batch, h, w, levels, th, tw, fine, vec, st)
+          : decode_all<kLeftTop>(g, o, batch, h, w, levels, th, tw, fine, vec, st);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1061,33 +1492,30 @@ int hgi_assemble_grid(const void* anchors, const void* const* quads,
 // K5: anchors and quads as K3 writes them for an h x w plane at effective
 // depth `levels`, of which the first `upto` levels are decoded (quads
 // holds their 3*upto pointers); out is [batch, ceil(h/s), ceil(w/s)]
-// with s = 2^(levels-upto): the whole image when upto = levels.
-int hgi_decode_subbands(const void* anchors, const void* const* quads,
-                        void* out, int batch, int h, int w, int levels,
-                        int upto, int predictor, void* stream) {
+// with s = 2^(levels-upto): the whole image when upto = levels.  The
+// finest min(upto, fine) levels run in th x tw tiles (hgi_encode's rules).
+int hgi_decode_subbands(const void* anchors, const void* const* quads, void* out, int batch,
+                        int h, int w, int levels, int upto, int predictor, int th, int tw,
+                        int fine, void* stream) {
   const auto* a = static_cast<const uint8_t*>(anchors);
-  const auto* const* q = reinterpret_cast<const uint8_t* const*>(quads);
   auto* o = static_cast<uint8_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || h <= 0 || w <= 0) return cudaSuccess;
   if ((predictor != kCrossed && predictor != kLeftTop) || levels < 0 ||
-      levels >= kMaxLevels || upto < 0 || upto > levels)
+      levels >= kMaxLevels || upto < 0 || upto > levels || bad_tiling(th, tw, fine))
     return cudaErrorInvalidValue;
+  Quads qs = {};
+  for (int i = 0; i < 3 * upto; ++i) qs.q[i] = static_cast<const uint8_t*>(quads[i]);
   const long long s = 1LL << (levels - upto);
   const int ho = (int)cdiv(h, s);
   const int wo = (int)cdiv(w, s);
-  const long long plane = (long long)ho * wo;
-  const Lattice alat(ho, wo, 1 << upto);  // ceil(h/2^L) x ceil(w/2^L)
-  cudaError_t err = over_batch(batch, [&](int b0, int nb) {
-    unpack_anchors<<<dim3(alat.blocks(), nb), kThreads, 0, st>>>(
-        a + b0 * alat.cells, o + b0 * plane, ho, wo, 1 << upto, alat.wc,
-        alat.cells);
-  });
-  if (err != cudaSuccess) return err;
-  const int ah = (int)(alat.cells / alat.wc);
-  err = predictor == kCrossed
-            ? decode_sub_levels<kCrossed>(q, o, batch, ho, wo, upto, ah, alat.wc, st)
-            : decode_sub_levels<kLeftTop>(q, o, batch, ho, wo, upto, ah, alat.wc, st);
+  const int ah = (int)cdiv(ho, 1LL << upto);  // ceil(h/2^L) x ceil(w/2^L)
+  const int aw = (int)cdiv(wo, 1LL << upto);
+  const bool vec = wo % 16 == 0 && aligned16(o);
+  const cudaError_t err =
+      predictor == kCrossed
+          ? decode_sub_all<kCrossed>(a, qs, o, batch, ho, wo, upto, ah, aw, th, tw, fine, vec, st)
+          : decode_sub_all<kLeftTop>(a, qs, o, batch, ho, wo, upto, ah, aw, th, tw, fine, vec, st);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

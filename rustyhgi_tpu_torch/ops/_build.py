@@ -133,7 +133,7 @@ def load() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.hgi_encode.argtypes = [ptr, ptr, ptr, QTable] + [i32] * 9 + [ptr]
         lib.hgi_encode.restype = i32
-        lib.hgi_decode.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        lib.hgi_decode.argtypes = [ptr, ptr] + [i32] * 8 + [ptr]
         lib.hgi_decode.restype = i32
         ptrs = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
         lib.hgi_encode_subbands.argtypes = [
@@ -142,9 +142,7 @@ def load() -> ctypes.CDLL:
         lib.hgi_encode_subbands.restype = i32
         lib.hgi_assemble_grid.argtypes = [ptr, ptrs, ptr, i32, i32, i32, i32, ptr]
         lib.hgi_assemble_grid.restype = i32
-        lib.hgi_decode_subbands.argtypes = [
-            ptr, ptrs, ptr, i32, i32, i32, i32, i32, i32, ptr,
-        ]
+        lib.hgi_decode_subbands.argtypes = [ptr, ptrs, ptr] + [i32] * 9 + [ptr]
         lib.hgi_decode_subbands.restype = i32
         lib.rans_tpu_encode.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
         lib.rans_tpu_encode.restype = i32

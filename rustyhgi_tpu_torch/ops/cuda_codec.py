@@ -20,8 +20,11 @@ their own: X1 in :mod:`.tpurans`, K6 and K7 in :mod:`.bitpack`.  In
 A wrapper takes its kernel's plain version (:mod:`.pyramid`) for a tensor
 on the CPU, and only then.  For a CUDA tensor it launches the kernel or
 raises: it checks the dtype (uint8), rank (2 or 3), contiguity and, for
-the subband layout, every shape, and raises when the kernel reports an
-error.  The kernels cover every depth, shape, predictor and quantizer
+the subband layout, every shape (the shapes a layout must have are kept
+per plane shape, depth, batch and device, and all its quads are compared
+with them in one pass), and raises when the kernel reports an error.  A
+wrapper makes the tensor's device current only when it is not already.
+The kernels cover every depth, shape, predictor and quantizer
 table, so no CUDA configuration routes to the plain version.
 
 ``encode_launches``, ``decode_launches``, ``encode_subbands_launches``,
@@ -37,12 +40,20 @@ tensor lives unchanged, so a codec's calls do no host work for it.
 
 K1's lossy path tiles its finest ``min(L, FINE_LEVELS)`` levels in
 ``TILE`` tiles in one launch, and launches once more per coarser level;
-its lossless path is one launch at any depth.
+its lossless path is one launch at any depth.  K2 and K5 tile their
+finest ``min(L, DECODE_FINE_LEVELS)`` levels (K5's preview:
+``min(upto, DECODE_FINE_LEVELS)``) the same way, in tiles of
+:func:`decode_tile`'s size, so they too are one launch at
+``L <= DECODE_FINE_LEVELS``; :func:`decode_plane_tiled` and
+:func:`decode_preview_tiled` take the tiling as :func:`encode_plane_tiled`
+does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import weakref
 from typing import Optional, Tuple
 
@@ -58,13 +69,18 @@ __all__ = [
     "encode_plane",
     "encode_plane_tiled",
     "decode_plane",
+    "decode_plane_tiled",
     "encode_subbands",
     "assemble_grid",
     "decode_subbands",
     "decode_preview",
+    "decode_preview_tiled",
     "table_arg",
     "TILE",
     "FINE_LEVELS",
+    "DECODE_TILES",
+    "decode_tile",
+    "DECODE_FINE_LEVELS",
     "encode_launches",
     "decode_launches",
     "encode_subbands_launches",
@@ -88,6 +104,15 @@ _MAX_BATCH = 1 << 31
 # ``python -m rustyhgi_tpu_torch.tools.chip_probe sweep``.
 TILE = (64, 128)
 FINE_LEVELS = 4
+# K2's and K5's tiles and tiled levels, under the same rules and chosen by
+# the same sweep; fine 0 runs every level in a launch of its own.  A call
+# takes DECODE_TILES[1]; DECODE_TILES[0] when it would cut fewer of those
+# than the card has SMs, as a preview does, so that no SM idles while one
+# block's latency sets the time; DECODE_TILES[2] when it would cut more
+# than DECODE_TILES_SWITCH (:func:`decode_tile`).
+DECODE_TILES = ((32, 64), (64, 128), (128, 128))
+DECODE_TILES_SWITCH = 1024
+DECODE_FINE_LEVELS = 4
 
 _NO_TABLE = QTable()  # the lossless paths read no table
 _tables = {}  # id(tensor) -> (weakref to it, its version, QTable)
@@ -107,6 +132,35 @@ def _check_cuda(x: torch.Tensor, name: str) -> Tuple[int, int, int]:
     if max(h, w) > _MAX_DIM or b >= _MAX_BATCH:
         raise ValueError(f"{name} shape {tuple(x.shape)} is beyond the kernels' range")
     return b, h, w
+
+
+def _on(device: torch.device):
+    """``torch.cuda.device(device)``, or nothing when it is current already."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _check_tiling(tile: Tuple[int, int], fine: int) -> Tuple[int, int]:
+    """The tile's rows and columns, or ValueError unless the kernels take
+    them: multiples of 16 and of ``2**fine``, ``fine`` in 0-5."""
+    th, tw = (int(d) for d in tile)
+    if not 0 <= fine <= 5 or min(th, tw) <= 0 or th % 16 or tw % 16 or (th | tw) % (1 << fine):
+        raise ValueError(f"tile {tile} must be multiples of 16 and of 2**{fine}, fine in [0, 5]")
+    return th, tw
+
+
+def decode_tile(b: int, h: int, w: int, sms: int) -> Tuple[int, int]:
+    """K2's and K5's tile for ``b`` planes of ``h x w`` on a card of
+    ``sms`` SMs (see DECODE_TILES)."""
+    th, tw = DECODE_TILES[1]
+    n = b * cdiv(h, th) * cdiv(w, tw)
+    return DECODE_TILES[0 if n < sms else 2 if n > DECODE_TILES_SWITCH else 1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _raise_on(lib, rc: int, entry: str) -> None:
@@ -165,9 +219,7 @@ def encode_plane_tiled(
     predictor = check_predictor(predictor)
     if image.device.type == "cpu":
         return pyramid.encode_plane(image, levels, table, predictor)
-    th, tw = (int(d) for d in tile)
-    if not 0 <= fine <= 5 or min(th, tw) <= 0 or th % 16 or tw % 16 or (th | tw) % (1 << fine):
-        raise ValueError(f"tile {tile} must be multiples of 16 and of 2**{fine}, fine in [0, 5]")
+    th, tw = _check_tiling(tile, fine)
     b, h, w = _check_cuda(image, "image")
     tab = None if table is None else table_arg(table)
     grid = torch.empty_like(image)
@@ -175,7 +227,7 @@ def encode_plane_tiled(
     if image.numel() == 0:
         return grid, recon
     lib = _build.load()
-    with torch.cuda.device(image.device):
+    with _on(image.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hgi_encode(
             image.data_ptr(), grid.data_ptr(),
@@ -193,20 +245,37 @@ def decode_plane(
     grid: torch.Tensor, levels: int, predictor: str = "crossed"
 ) -> torch.Tensor:
     """K2: uint8 ``[H, W]``/``[B, H, W]`` residual grid -> image."""
+    return decode_plane_tiled(grid, levels, predictor)
+
+
+def decode_plane_tiled(
+    grid: torch.Tensor,
+    levels: int,
+    predictor: str = "crossed",
+    tile: Optional[Tuple[int, int]] = None,
+    fine: int = DECODE_FINE_LEVELS,
+) -> torch.Tensor:
+    """:func:`decode_plane` with the tiling given, under the rules of
+    :func:`encode_plane_tiled` (``tile`` None: :func:`decode_tile`);
+    ``fine`` 0 launches every level on its own.  The output does not
+    depend on them."""
     global decode_launches
     predictor = check_predictor(predictor)
     if grid.device.type == "cpu":
         return pyramid.decode_plane(grid, levels, predictor)
+    th, tw = _check_tiling(tile or DECODE_TILES[0], fine)
     b, h, w = _check_cuda(grid, "grid")
+    if tile is None:
+        th, tw = decode_tile(b, h, w, _sms(grid.device.index))
     out = torch.empty_like(grid)
     if grid.numel() == 0:
         return out
     lib = _build.load()
-    with torch.cuda.device(grid.device):
+    with _on(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hgi_decode(
             grid.data_ptr(), out.data_ptr(), b, h, w,
-            effective_levels(levels, h, w), PREDICTORS[predictor], stream,
+            effective_levels(levels, h, w), PREDICTORS[predictor], th, tw, fine, stream,
         )
     decode_launches += 1
     _raise_on(lib, rc, "hgi_decode")
@@ -218,7 +287,22 @@ def decode_plane(
 
 def _ptrs(tensors) -> ctypes.Array:
     """A host array of the tensors' device pointers."""
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+_layouts = {}  # (h, w, levels, upto, lead, device) -> (anchors shape, quad shapes read)
+
+
+def _expected_layout(h: int, w: int, levels: int, upto: int, lead: tuple, device):
+    key = (h, w, levels, upto, lead, device)
+    hit = _layouts.get(key)
+    if hit is None:
+        if len(_layouts) >= 256:
+            _layouts.clear()
+        a_shape, q_shapes = canvas_shapes(h, w, levels)
+        hit = _layouts[key] = (lead + a_shape,
+                               [lead + s for s in q_shapes[:upto] for _ in range(3)])
+    return hit
 
 
 def _check_layout(anchors, subbands, h: int, w: int, levels: int, upto: int):
@@ -228,28 +312,37 @@ def _check_layout(anchors, subbands, h: int, w: int, levels: int, upto: int):
     b, _, _ = _check_cuda(anchors, "anchors")
     if max(h, w) > _MAX_DIM or min(h, w) < 0:
         raise ValueError(f"shape {(h, w)} is beyond the kernels' range")
-    lead = tuple(anchors.shape[:-2])
-    a_shape, q_shapes = canvas_shapes(h, w, levels)
-    if tuple(anchors.shape[-2:]) != a_shape:
+    device = anchors.device
+    a_shape, q_shapes = _expected_layout(h, w, levels, upto, tuple(anchors.shape[:-2]), device)
+    if anchors.shape != a_shape:
         raise ValueError(
             f"anchors shape {tuple(anchors.shape)} does not match {(h, w)} at "
-            f"depth {levels}: expected {lead + a_shape}"
+            f"depth {levels}: expected {a_shape}"
         )
     if len(subbands) < upto:
         raise ValueError(f"{upto} levels needed, {len(subbands)} given")
-    flat = []
-    for level, (quads, q_shape) in enumerate(zip(subbands[:upto], q_shapes)):
+    flat = [q for quads in subbands[:upto] for q in quads]
+    if len(flat) != len(q_shapes) or not all(
+        q.dtype == torch.uint8 and q.device == device and q.shape == s and q.is_contiguous()
+        for q, s in zip(flat, q_shapes)
+    ):
+        _quad_fault(subbands[:upto], q_shapes[::3], device)
+    return b, flat
+
+
+def _quad_fault(subbands, q_shapes, device) -> None:
+    """Raise ValueError naming the first quad the kernels do not take."""
+    for level, (quads, q_shape) in enumerate(zip(subbands, q_shapes)):
         if len(quads) != 3:
             raise ValueError(f"level {level} must hold 3 quads, got {len(quads)}")
         for q in quads:
             _check_cuda(q, f"level {level} quad")
-            if q.device != anchors.device or tuple(q.shape) != lead + q_shape:
+            if q.device != device or q.shape != q_shape:
                 raise ValueError(
                     f"level {level} quad {tuple(q.shape)} on {q.device}: expected "
-                    f"{lead + q_shape} on {anchors.device}"
+                    f"{q_shape} on {device}"
                 )
-            flat.append(q)
-    return b, flat
+    raise ValueError("the subband layout does not match its shapes")
 
 
 def encode_subbands(
@@ -278,7 +371,7 @@ def encode_subbands(
     recon = image if tab is None else torch.empty_like(image)
     if image.numel():
         lib = _build.load()
-        with torch.cuda.device(image.device):
+        with _on(image.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.hgi_encode_subbands(
                 image.data_ptr(), anchors.data_ptr(),
@@ -307,7 +400,7 @@ def assemble_grid(anchors: torch.Tensor, subbands, shape: Tuple[int, int]) -> to
     if grid.numel() == 0:
         return grid
     lib = _build.load()
-    with torch.cuda.device(anchors.device):
+    with _on(anchors.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hgi_assemble_grid(
             anchors.data_ptr(), _ptrs(flat), grid.data_ptr(), b, h, w, lv, stream,
@@ -327,6 +420,21 @@ def decode_preview(
 ) -> torch.Tensor:
     """K5 stopped after ``upto`` levels: the image sampled every
     ``2**(L-upto)`` pixels, as :func:`.pyramid.decode_preview`."""
+    return decode_preview_tiled(anchors, subbands, shape, levels, upto, predictor)
+
+
+def decode_preview_tiled(
+    anchors: torch.Tensor,
+    subbands,
+    shape: Tuple[int, int],
+    levels: int,
+    upto: int,
+    predictor: str = "crossed",
+    tile: Optional[Tuple[int, int]] = None,
+    fine: int = DECODE_FINE_LEVELS,
+) -> torch.Tensor:
+    """:func:`decode_preview` with the tiling given, as
+    :func:`decode_plane_tiled` (in a block a tile)."""
     global decode_subbands_launches
     predictor = check_predictor(predictor)
     if anchors.device.type == "cpu":
@@ -334,17 +442,20 @@ def decode_preview(
     h, w = (int(d) for d in shape)
     lv = effective_levels(levels, h, w)
     upto = max(0, min(int(upto), lv))
-    b, flat = _check_layout(anchors, subbands, h, w, lv, upto)
     s = 1 << (lv - upto)
+    th, tw = _check_tiling(tile or DECODE_TILES[0], fine)
+    b, flat = _check_layout(anchors, subbands, h, w, lv, upto)
+    if tile is None:
+        th, tw = decode_tile(b, cdiv(h, s), cdiv(w, s), _sms(anchors.device.index))
     out = anchors.new_empty((*anchors.shape[:-2], cdiv(h, s), cdiv(w, s)))
     if out.numel() == 0:
         return out
     lib = _build.load()
-    with torch.cuda.device(anchors.device):
+    with _on(anchors.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hgi_decode_subbands(
             anchors.data_ptr(), _ptrs(flat), out.data_ptr(), b, h, w, lv, upto,
-            PREDICTORS[predictor], stream,
+            PREDICTORS[predictor], th, tw, fine, stream,
         )
     decode_subbands_launches += 1
     _raise_on(lib, rc, "hgi_decode_subbands")

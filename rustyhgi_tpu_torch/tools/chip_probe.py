@@ -3,9 +3,9 @@
 Counterpart of the JAX repo's ``tools/chip_probe.py``.  Two subcommands
 are ported: ``vpucal``, the op-rate calibration probe (``cmd_vpucal``), on
 the probe kernel K8 (:mod:`..ops.vpucal`, ``csrc/hgi_probe.cu``), and
-``sweep`` (``cmd_sweep``), which times lossy K1's tile and fine depth and
-X1's lanes a block, where the JAX probe swept its Pallas kernel's row
-tiles::
+``sweep`` (``cmd_sweep``), which times lossy K1's tile and fine depth, the
+same for the decodes K2 and K5 (fine 0: a launch a level; K5's previews;
+the tile at more plane counts and sizes), and X1's lanes a block, where the JAX probe swept its Pallas kernel's row tiles::
 
     python -m rustyhgi_tpu_torch.tools.chip_probe vpucal [names]
     python -m rustyhgi_tpu_torch.tools.chip_probe sweep
@@ -364,6 +364,13 @@ SWEEP_SHAPES = ((1, 1080, 1920), (8, 1080, 1920))
 SWEEP_TILES = ((16, 64), (32, 32), (32, 64), (64, 64), (32, 128), (64, 128), (128, 128))
 SWEEP_LEVELS = (4, 8)
 SWEEP_FINE = (4, 5)
+SWEEP_DECODE_FINE = (0, 3, 4, 5)  # 0: every level a launch of its own
+# The decodes' tile by the tiles a call cuts: previews at L4 (upto 2 is
+# 1/16 of the pixels) and full decodes at more plane counts and sizes,
+# at the default fine depth.
+SWEEP_DECODE_TILES = ((16, 16), (16, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128))
+SWEEP_PREVIEWS = (3, 2)
+SWEEP_DECODE_SHAPES = ((2, 1080, 1920), (1, 2614, 2368), (4, 1080, 1920))
 SWEEP_LANE_BLOCKS = (32, 64, 128)
 SWEEP_X1_PLANES = (1, 8, 32)
 
@@ -377,12 +384,57 @@ def _plane(rng, shape) -> np.ndarray:
     return np.clip(base + rng.normal(0.0, 6.0, (*lead, h, w)), 0, 255).astype(np.uint8)
 
 
+def _decode_rows(rows, img, levels, table, device_ms, smi, fines, tiles, uptos=()) -> None:
+    """K2's and K5's rows of the sweep on ``img`` at ``levels``: every
+    fine depth of ``fines`` with every tile of ``tiles`` it divides (fine
+    0, one launch a level, once), and K5's previews at each ``upto`` of
+    ``uptos``; each checked equal to the plain version.  A row's key names
+    the tiles the call cuts."""
+    from ..ops import cuda_codec, pyramid
+
+    hw = tuple(img.shape[-2:])
+    b = img.shape[0] if img.dim() == 3 else 1
+    grid, recon = cuda_codec.encode_plane(img, levels, table)
+    anchors, subbands, _ = cuda_codec.encode_subbands(img, levels, table)
+    if not torch.equal(pyramid.decode_plane(grid, levels), recon):
+        raise RuntimeError("the plain decode differs from the recon")
+    for fine in fines:
+        if fine > levels:
+            continue  # the same launches as fine = levels
+        for tile in tiles[-1:] if fine == 0 else tiles:
+            if (tile[0] | tile[1]) % (1 << fine):
+                continue
+            runs = [(name, upto) for upto in (levels, *uptos)
+                    for name in (("K2", "K5") if upto == levels else ("K5",))]
+            for name, upto in runs:
+                s = 1 << (levels - upto)
+                if name == "K2":
+                    run = lambda: cuda_codec.decode_plane_tiled(grid, levels, "crossed", tile, fine)
+                else:
+                    run = lambda: cuda_codec.decode_preview_tiled(
+                        anchors, subbands[:upto], hw, levels, upto, "crossed", tile, fine)
+                if not torch.equal(run(), recon[..., ::s, ::s]):
+                    raise RuntimeError(f"{name} upto {upto} tile {tile} fine {fine} differs at "
+                                       f"{tuple(img.shape)} L{levels}")
+                ms = device_ms(run)
+                cut = b * -(-hw[0] // s // tile[0]) * -(-hw[1] // s // tile[1])
+                key = (f"{'x'.join(map(str, img.shape))} L{levels}"
+                       + (f" preview {upto}" if upto < levels else "") + f" fine {fine}"
+                       + ("" if fine == 0 else f" tile {tile[0]}x{tile[1]} ({cut} tiles)"))
+                rows[name.lower()][key] = ms
+                print(f"sweep {name} {key}: device {ms if ms is None else f'{ms:.4f}'} ms "
+                      f"[{smi}]", flush=True)
+
+
 def cmd_sweep() -> Dict[str, dict]:
-    """Lossy K1's tile and fine depth, and X1's lanes a block, by device
-    time (``torch.profiler``, the mean of ``bench.REPEATS`` calls), on
-    smooth 1080x1920 planes at medium; every choice's output is checked
-    equal to the default's.  Prints a row a line, then one JSON object
-    ``{"sweep": {...}}``."""
+    """Lossy K1's tile and fine depth, K2's and K5's (with K5's previews
+    and more plane counts and sizes for the decodes' tile), and X1's lanes
+    a block, by device time (``torch.profiler``, the mean of
+    ``bench.REPEATS`` calls), on smooth planes at medium; every choice's
+    output is checked equal to the default's or the plain version's.
+    Prints a row a line, then one JSON object ``{"sweep": {...},
+    "launches": {...}}``, the latter the wrapper calls of K1, K2, K5 and
+    X1 the sweep made."""
     if not torch.cuda.is_available():
         raise RuntimeError("sweep needs a CUDA card: torch.cuda.is_available() is false")
     from .. import bench
@@ -396,13 +448,26 @@ def cmd_sweep() -> Dict[str, dict]:
     def device_ms(fn):
         return sum(bench.device_trace(fn, "cuda").values()) * 1e3 or None
 
-    rows = {"k1": {}, "x1": {}}
-    print(f"device: {torch.cuda.get_device_name(0)} | K1 medium (crossed) and X1 on smooth "
-          f"planes; device ms, torch.profiler mean | default tile {cuda_codec.TILE}, fine "
-          f"{cuda_codec.FINE_LEVELS}, lane block {tpurans.LANE_BLOCK}", flush=True)
+    rows = {"k1": {}, "k2": {}, "k5": {}, "x1": {}}
+    counters = {"K1": (cuda_codec, "encode_launches"), "K2": (cuda_codec, "decode_launches"),
+                "K5": (cuda_codec, "decode_subbands_launches"), "X1": (tpurans, "rans_launches")}
+    before = {k: getattr(m, a) for k, (m, a) in counters.items()}
+    print(f"device: {torch.cuda.get_device_name(0)} | K1, K2, K5 medium (crossed) and X1 on "
+          f"smooth planes; device ms, torch.profiler mean | default tile {cuda_codec.TILE}, "
+          f"fine {cuda_codec.FINE_LEVELS}, decode tiles {cuda_codec.DECODE_TILES}, fine "
+          f"{cuda_codec.DECODE_FINE_LEVELS}, lane block {tpurans.LANE_BLOCK}", flush=True)
     for shape in SWEEP_SHAPES:
         img = torch.from_numpy(_plane(rng, shape)).to("cuda")
         for levels in SWEEP_LEVELS:
+            fine = cuda_codec.DECODE_FINE_LEVELS
+            if levels == SWEEP_LEVELS[0]:  # every decode tile and the previews at one depth
+                _decode_rows(rows, img, levels, table, device_ms, smi,
+                             [f for f in SWEEP_DECODE_FINE if f != fine], SWEEP_TILES)
+                _decode_rows(rows, img, levels, table, device_ms, smi, (fine,),
+                             SWEEP_DECODE_TILES, SWEEP_PREVIEWS)
+            else:
+                _decode_rows(rows, img, levels, table, device_ms, smi, SWEEP_DECODE_FINE,
+                             SWEEP_TILES)
             want = cuda_codec.encode_plane(img, levels, table)
             for fine in SWEEP_FINE:
                 if fine > min(SWEEP_FINE) and fine > levels:
@@ -434,7 +499,13 @@ def cmd_sweep() -> Dict[str, dict]:
             rows["x1"][key] = ms
             print(f"sweep X1 {key}: device {ms if ms is None else f'{ms:.4f}'} ms [{smi}]",
                   flush=True)
-    print(json.dumps({"sweep": rows}))
+    drng = np.random.default_rng([SEED, 1])
+    for shape in SWEEP_DECODE_SHAPES:
+        img = torch.from_numpy(_plane(drng, shape)).to("cuda")
+        _decode_rows(rows, img, SWEEP_LEVELS[0], table, device_ms, smi,
+                     (cuda_codec.DECODE_FINE_LEVELS,), SWEEP_DECODE_TILES[-2:])
+    launches = {k: getattr(m, a) - before[k] for k, (m, a) in counters.items()}
+    print(json.dumps({"sweep": rows, "launches": launches}))
     return rows
 
 
@@ -447,7 +518,8 @@ def main(argv=None) -> int:
     p = sub.add_parser("vpucal", help="op-rate calibration on the probe kernel K8")
     p.add_argument("names", nargs="?", default=None,
                    help=f"comma-separated rows, of {','.join(ROWS)} (default all)")
-    sub.add_parser("sweep", help="lossy K1's tile and fine depth, X1's lanes a block")
+    sub.add_parser("sweep", help="the tile and fine depth of lossy K1, K2 and K5, X1's lanes "
+                                 "a block")
     args = parser.parse_args(argv)
     if args.command == "sweep":
         cmd_sweep()

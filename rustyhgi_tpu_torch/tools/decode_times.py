@@ -1,0 +1,137 @@
+"""K2 and K5 of one checkout, timed on the card in a process of their own.
+
+    python rustyhgi_tpu_torch/tools/decode_times.py [--root DIR] [--json PATH]
+
+``DIR`` (default: the checkout this file lies in) is the checkout whose
+``rustyhgi_tpu_torch`` is imported and timed, so that two versions of
+the port compare in one call on one card: unpack the other into a
+directory and run parent, change, change, parent.  Only entry points that
+every version of the port has are called: K2 ``cuda_codec.decode_plane``,
+K5 ``decode_subbands`` and K5's preview ``decode_preview`` at ``upto`` 2,
+on smooth 1080x1920 planes (waves plus sigma-6 noise from a seeded numpy
+generator) at L4, one plane and eight, lossless and medium.
+
+For each row: the median and range of ``2 * REPEATS`` CUDA-event-timed
+calls with the L2 cache flushed (the wrapper's whole window,
+``benchsuite.device_samples``), and from ``torch.profiler`` the device
+time of one call and the device kernels it launches (:func:`device_trace`).
+A fresh process has traced nothing before, so its traces hold every
+record.  Each line ends with the card's name and power limit; the last
+line is one JSON object ``{"decode_times": {row: {...}}, ...}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+SEED = 20261016
+REPEATS = 7
+TRACE_ATTEMPTS = 6
+SHAPES = ((1, 1080, 1920), (8, 1080, 1920))
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def device_trace(fn, repeats: int = REPEATS) -> tuple:
+    """``fn`` under torch.profiler, ``repeats`` calls after a warm-up:
+    (device ms of one call, its kernels and copies; the device kernels a
+    call launches, copies and memsets not counted).  A trace whose counts
+    are no multiple of ``repeats`` dropped records and is taken again;
+    (None, None) when TRACE_ATTEMPTS did.  Drops come at random even early
+    in a process: one trace in a few, a whole trace empty at times."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from rustyhgi_tpu_torch.utils import profiling
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(TRACE_ATTEMPTS):
+        with profiling.trace(None, "cuda") as prof:
+            for _ in range(repeats):
+                fn()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if events and all(e.count % repeats == 0 for e in events):
+            ms = sum(e.self_device_time_total for e in events) / repeats / 1e3
+            n = sum(e.count for e in events if "Memcpy" not in e.key and "Memset" not in e.key)
+            return ms, n / repeats
+    return None, None
+
+
+def plane(rng, shape):
+    """A smooth plane with mild noise (waves plus sigma 6)."""
+    import numpy as np
+
+    *lead, h, w = shape
+    y = np.linspace(0.0, 6.0, h)[:, None]
+    x = np.linspace(0.0, 9.0, w)[None, :]
+    base = 128 + 60 * np.sin(y) * np.cos(x) + 30 * np.sin(3 * x + y)
+    return np.clip(base + rng.normal(0.0, 6.0, (*lead, h, w)), 0, 255).astype(np.uint8)
+
+
+def measure() -> dict:
+    """The rows, printed one a line; returns ``{row: {...}}``."""
+    import numpy as np
+    import torch
+
+    from rustyhgi_tpu_torch.ops import cuda_codec
+    from rustyhgi_tpu_torch.ops.quantizers import QuantizationLevel, quantize_fn
+    from rustyhgi_tpu_torch.utils.benchsuite import device_samples
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("decode_times needs a CUDA card: torch.cuda.is_available() is false")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    rng = np.random.default_rng(SEED)
+    rows = {}
+    for shape in SHAPES:
+        img = torch.from_numpy(plane(rng, shape)).to("cuda")
+        hw = tuple(img.shape[-2:])
+        for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
+            q = quantize_fn(preset)
+            table = None if q.identity else q.table
+            grid, recon = cuda_codec.encode_plane(img, 4, table)
+            anchors, subbands, _ = cuda_codec.encode_subbands(img, 4, table)
+            for name, fn, want in (
+                ("K2", lambda: cuda_codec.decode_plane(grid, 4), recon),
+                ("K5", lambda: cuda_codec.decode_subbands(anchors, subbands, hw, 4), recon),
+                ("K5 preview 2", lambda: cuda_codec.decode_preview(anchors, subbands[:2], hw, 4, 2),
+                 recon[..., ::4, ::4]),
+            ):
+                if not torch.equal(fn(), want):
+                    raise RuntimeError(f"{name} at {shape} {preset.name} differs from the recon")
+                dev, launches = device_trace(fn)
+                ev = [t * 1e3 for t in device_samples(fn, 2 * REPEATS, "cuda")]
+                key = f"{name} {'x'.join(map(str, shape))} {preset.name.lower()}"
+                rows[key] = {"event_ms": statistics.median(ev), "event_min": min(ev),
+                             "event_max": max(ev), "device_ms": dev, "device_launches": launches}
+                shown = "not measured" if dev is None else f"{dev:.4f} ms, {launches:g} launch(es)"
+                print(f"decode-times {key} L4: event median {statistics.median(ev):.4f} ms "
+                      f"[{min(ev):.4f}..{max(ev):.4f}], device {shown} [{card}]", flush=True)
+    return {"decode_times": rows, "card": card, "device": torch.cuda.get_device_name(0)}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="decode_times", description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=_ROOT, help="the checkout whose port is timed")
+    parser.add_argument("--json", default=None, help="also write the result here")
+    args = parser.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    result = measure()
+    result["root"] = root
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(result, f)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

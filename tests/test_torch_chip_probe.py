@@ -8,6 +8,7 @@ written in its format, and the argument handling.
 import pytest
 import torch
 
+from rustyhgi_tpu_torch.ops import cuda_codec
 from rustyhgi_tpu_torch.tools import chip_probe
 
 
@@ -168,3 +169,25 @@ def test_sweep_choices_fit_the_kernels():
         assert th % 16 == 0 and tw % 16 == 0
     assert set(chip_probe.SWEEP_LANE_BLOCKS) == {32, 64, 128}
     assert max(chip_probe.SWEEP_FINE) <= 5
+
+
+def test_sweep_decode_choices_fit_the_kernels():
+    assert 0 in chip_probe.SWEEP_DECODE_FINE  # one launch a level
+    assert all(0 <= f <= 5 for f in chip_probe.SWEEP_DECODE_FINE)
+    fine = cuda_codec.DECODE_FINE_LEVELS
+    for th, tw in chip_probe.SWEEP_DECODE_TILES:
+        assert th % 16 == 0 and tw % 16 == 0 and (th | tw) % (1 << fine) == 0
+
+
+def test_sweep_times_every_decode_tile_and_a_preview():
+    assert set(cuda_codec.DECODE_TILES) <= set(chip_probe.SWEEP_DECODE_TILES)
+    assert all(0 < upto < chip_probe.SWEEP_LEVELS[0] for upto in chip_probe.SWEEP_PREVIEWS)
+    assert 2 in chip_probe.SWEEP_PREVIEWS  # the CLI's and the smoke's preview
+
+
+def test_decode_times_without_a_card_raises(monkeypatch):
+    from rustyhgi_tpu_torch.tools import decode_times
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        decode_times.main([])

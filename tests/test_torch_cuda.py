@@ -185,6 +185,100 @@ def test_subband_kernels_match_plain_version(cuda, shape, preset, pred):
         _assert_layouts_equal((anchors, no_recon_s), (anchors, subbands))
 
 
+DECODE_TILINGS = [((16, 16), 4), ((32, 32), 5), ((16, 48), 2), ((128, 128), 5), ((64, 128), 0),
+                  ((64, 128), 3)]
+
+
+@pytest.mark.parametrize("shape", [(3, 300, 517), (2614, 2368), (129, 65), (1, 1080, 1920)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("preset", [QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM],
+                         ids=["lossless", "medium"])
+@pytest.mark.parametrize("pred", ["crossed", "left_top"])
+def test_tiled_decodes_over_many_ragged_tiles(cuda, shape, preset, pred):
+    """K2's and K5's tiles, every preview included, at every split of the
+    depth between coarse launches and tiled levels."""
+    img = torch.from_numpy(_image(shape)).to(cuda)
+    hw = img.shape[-2:]
+    table = _table(preset)
+    for levels in range(0, 9):
+        grid, recon = cuda_codec.encode_plane(img, levels, table, pred)
+        assert torch.equal(cuda_codec.decode_plane(grid, levels, pred),
+                           pyramid.decode_plane(grid, levels, pred)), levels
+        anchors, subbands, _ = cuda_codec.encode_subbands(img, levels, table, pred)
+        assert torch.equal(cuda_codec.decode_subbands(anchors, subbands, hw, levels, pred), recon)
+        for upto in range(len(subbands) + 1):
+            got = cuda_codec.decode_preview(anchors, subbands[:upto], hw, levels, upto, pred)
+            want = pyramid.decode_preview(anchors, subbands[:upto], hw, levels, upto, pred)
+            assert torch.equal(got, want), (levels, upto)
+
+
+@pytest.mark.parametrize("tile,fine", DECODE_TILINGS, ids=str)
+@pytest.mark.parametrize("shape", [(2, 150, 333), (3, 96, 320)], ids=lambda s: "x".join(map(str, s)))
+def test_decode_tiling_does_not_change_the_output(cuda, shape, tile, fine):
+    """Every tiling, on rows of whole 16-byte pieces (320 columns) and
+    not (333)."""
+    img = torch.from_numpy(_image(shape)).to(cuda)
+    hw = img.shape[-2:]
+    table = _table(QuantizationLevel.HIGH)
+    for levels in (0, 2, 5, 8):
+        grid, recon = cuda_codec.encode_plane(img, levels, table, "left_top")
+        got = cuda_codec.decode_plane_tiled(grid, levels, "left_top", tile, fine)
+        assert torch.equal(got, recon), levels
+        anchors, subbands, _ = cuda_codec.encode_subbands(img, levels, table, "left_top")
+        for upto in range(len(subbands) + 1):
+            got = cuda_codec.decode_preview_tiled(anchors, subbands[:upto], hw, levels, upto,
+                                                  "left_top", tile, fine)
+            want = pyramid.decode_preview(anchors, subbands[:upto], hw, levels, upto, "left_top")
+            assert torch.equal(got, want), (levels, upto)
+
+
+def test_decode_on_unaligned_buffers(cuda):
+    """A grid one byte into its buffer, and quads that are views: the
+    kernels take their unaligned paths."""
+    img = torch.from_numpy(_image((3, 64, 96))).to(cuda)
+    grid, recon = cuda_codec.encode_plane(img, 5)
+    buf = torch.empty(1 + grid.numel(), dtype=torch.uint8, device=cuda)
+    shifted = buf[1:].view(grid.shape)
+    shifted.copy_(grid)
+    assert torch.equal(cuda_codec.decode_plane(shifted, 5), recon)
+    anchors, subbands, _ = cuda_codec.encode_subbands(img, 5)
+    moved = []
+    for quads in subbands:
+        level = []
+        for q in quads:
+            b = torch.empty(3 + q.numel(), dtype=torch.uint8, device=cuda)
+            v = b[3:].view(q.shape)
+            v.copy_(q)
+            level.append(v)
+        moved.append(tuple(level))
+    assert torch.equal(cuda_codec.decode_subbands(anchors, moved, (64, 96), 5), recon)
+
+
+@pytest.mark.parametrize("tile,fine", [((8, 64), 4), ((64, 72), 4), ((16, 16), 5), ((64, 64), 6)])
+def test_tiled_decodes_refuse_tiles_the_kernel_does_not_take(cuda, tile, fine):
+    img = torch.from_numpy(_image((40, 40))).to(cuda)
+    grid, _ = cuda_codec.encode_plane(img, 4)
+    anchors, subbands, _ = cuda_codec.encode_subbands(img, 4)
+    with pytest.raises(ValueError, match="tile"):
+        cuda_codec.decode_plane_tiled(grid, 4, "crossed", tile, fine)
+    with pytest.raises(ValueError, match="tile"):
+        cuda_codec.decode_preview_tiled(anchors, subbands, (40, 40), 4, 4, "crossed", tile, fine)
+
+
+def test_decode_launch_counters_count_one_a_call(cuda):
+    img = torch.from_numpy(_image((2, 300, 517))).to(cuda)
+    for levels in (0, 4, 8):
+        grid, _ = cuda_codec.encode_plane(img, levels)
+        anchors, subbands, _ = cuda_codec.encode_subbands(img, levels)
+        before = (cuda_codec.decode_launches, cuda_codec.decode_subbands_launches)
+        cuda_codec.decode_plane(grid, levels)
+        cuda_codec.decode_plane_tiled(grid, levels, "crossed", (64, 128), 0)
+        cuda_codec.decode_subbands(anchors, subbands, (300, 517), levels)
+        cuda_codec.decode_preview(anchors, subbands[:1], (300, 517), levels, 1)
+        after = (cuda_codec.decode_launches, cuda_codec.decode_subbands_launches)
+        assert after == (before[0] + 2, before[1] + 2), levels
+
+
 def test_subband_launch_counters(cuda):
     img = torch.from_numpy(_image((16, 24))).to(cuda)
     before = (cuda_codec.encode_subbands_launches, cuda_codec.assemble_launches,
