@@ -13,9 +13,11 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
 2. hold each kernel (K1-K5) against its plain PyTorch version on the
    card, bit for bit, over ragged shapes, depths 0-16, every preset, both
    predictors, every preview depth, the real sizes 1080x1920,
-   8x1080x1920 and 2614x2368, and shapes of many of lossy K1's tiles
-   with ragged edges (3x300x517 and 2614x2368 at depths 1-8, lossless
-   and medium); the subband kernels also against K1; then the fast
+   8x1080x1920 and 2614x2368, and shapes of many of lossy K1's and K3's
+   tiles with ragged edges (3x300x517, 2614x2368 and 1081x1921 at depths
+   1-8, lossless and medium); the subband kernels also against K1, K3
+   also with no recon wanted, K4 and K5 also on quads one byte into
+   buffers of their own; then the fast
    mode's kernels (X1 device rANS, K6 bit-plane pack, K7 unpack) over
    stream sizes at the lanes' and blocks' edges, degenerate streams, a
    constant plane with one odd byte (frequencies 1 and 16383, the
@@ -60,11 +62,13 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    the kernel's device time alone, and the device kernels one call
    launches, with ``torch.profiler`` (lossless K1 must be one launch at
    depths 4 and 8, lossy K1 one at depth 4, K2 and K5 one at depth 4 and
-   for K5's preview at upto 2, and 1 + 8 - DECODE_FINE_LEVELS at depth 8:
+   for K5's preview at upto 2, and 1 + 8 - DECODE_FINE_LEVELS at depth 8;
+   lossless K3 one at depths 4 and 8, lossy K3 one at depth 4 and
+   1 + 8 - FINE_LEVELS at depth 8, with or without recon; K4 one:
    checked first of all, while the profiler's traces hold every record;
-   K2's and K5's device times are traced then too, on the very grids and
-   quads this phase times, which are made first from a seed of their
-   own); for X1's histogram, also
+   the device times of K2-K5 are traced then too, on the very planes,
+   grids and quads this phase times, which are made first from a seed of
+   their own); for X1's histogram, also
    ``torch.bincount`` on the same grid; and X1's device time against its
    rows and lanes, from one plane to 32.  Each kernel's bound is the
    larger of its bytes over 3.35 TB/s and its operations over the card's
@@ -73,11 +77,11 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    higher.  X1 also has a chain bound: its rows T times the dependent
    chain of its lanes loop, in SASS instructions a row (read with
    ``cuobjdump -sass``), times 4 cycles, over the SM clock;
-9. run the probe's ``sweep`` (lossy K1's tile and fine depth, K2's and
-   K5's tile and fine depth with fine 0 for one launch a level, K5's
-   previews, the decodes' tile at more plane counts and sizes, X1's lanes
-   a block) in a process of its own, whose traces hold every record, and
-   check the launches of K1, K2, K5 and X1 that it reports.
+9. run the probe's ``sweep`` (lossy K1's and K3's tile and fine depth,
+   K2's and K5's tile and fine depth with fine 0 for one launch a level,
+   K5's previews, the decodes' tile at more plane counts and sizes, X1's
+   lanes a block) in a process of its own, whose traces hold every record,
+   and check the launches of K1, K2, K3, K5 and X1 that it reports.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -216,6 +220,14 @@ def _err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` one byte into a buffer of its own."""
+    buf = torch.empty(1 + t.numel(), dtype=torch.uint8, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def compare_kernels(rng) -> dict:
     """Phase 2: kernel against plain version on the card; returns the
     worst |err| of each kernel."""
@@ -232,9 +244,11 @@ def compare_kernels(rng) -> dict:
         for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
             for pred in ("crossed", "left_top"):
                 cases.append((shape, 4, _table(preset), pred, preset))
-    # Many of lossy K1's tiles, ragged at the right and bottom, at every
-    # split of the depth between coarse launches and the tiled levels.
-    for shape in [(3, 300, 517), (2614, 2368)]:
+    # Many of lossy K1's and K3's tiles, ragged at the right and bottom,
+    # K3's cut on a canvas beyond the plane (1081x1921 pads to 1088x1936 at
+    # L4, 1280x2048 at L8), at every split of the depth between coarse
+    # launches and the tiled levels.
+    for shape in [(3, 300, 517), (2614, 2368), (1081, 1921)]:
         for levels in range(1, 9):
             for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
                 for pred in ("crossed", "left_top"):
@@ -263,6 +277,20 @@ def compare_kernels(rng) -> dict:
         checks += [("K3", f"level {lv} quad {k}", q, wq)
                    for lv, (qs, wqs) in enumerate(zip(subbands, want_s))
                    for k, (q, wq) in enumerate(zip(qs, wqs))]
+        # K3 with no recon wanted, and K4 and K5 fed the quads one byte into
+        # buffers of their own.
+        nr_a, nr_s, nr_recon = cuda_codec.encode_subbands(img, levels, table, pred, False)
+        _check(nr_recon is None, f"K3 returned a recon it was not asked for at {tag}")
+        checks.append(("K3", "anchors, no recon", nr_a, want_a))
+        checks += [("K3", f"level {lv} quad {k}, no recon", q, wq)
+                   for lv, (qs, wqs) in enumerate(zip(nr_s, want_s))
+                   for k, (q, wq) in enumerate(zip(qs, wqs))]
+        moved_a = _unaligned(anchors)
+        moved = [tuple(_unaligned(q) for q in qs) for qs in subbands]
+        checks += [("K4", "grid, unaligned quads", cuda_codec.assemble_grid(moved_a, moved, hw),
+                    grid_sp),
+                   ("K5", "decode, unaligned quads",
+                    cuda_codec.decode_subbands(moved_a, moved, hw, levels, pred), dec_sp)]
         for upto in range(len(subbands) + 1):
             prev_k = cuda_codec.decode_preview(anchors, subbands[:upto], hw, levels, upto, pred)
             prev_p = pyramid.decode_preview(anchors, subbands[:upto], hw, levels, upto, pred)
@@ -284,7 +312,8 @@ def compare_kernels(rng) -> dict:
             _check(torch.equal(dec_k, recon_k), f"decode != recon at {tag}")
     print(f"phase kernels-vs-plain: {len(cases)} cases ({previews} previews) bit-identical "
           f"(tolerance: exact), max_abs_err {worst}; K4(K3) == K1 grid and "
-          f"K5(K3) == K1 recon in every case")
+          f"K5(K3) == K1 recon in every case; K3 without recon, and K4 and K5 on quads "
+          f"one byte off, in every case")
     return worst
 
 
@@ -819,8 +848,8 @@ def bench_tier(card: str) -> tuple:
 def sweep(card: str) -> None:
     """Last phase: ``python -m rustyhgi_tpu_torch.tools.chip_probe sweep``
     in a process of its own, whose traces hold every record however much
-    this one traced; the sweep reports the wrapper calls of K1, K2, K5 and
-    X1 it made."""
+    this one traced; the sweep reports the wrapper calls of K1, K2, K3, K5
+    and X1 it made."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "rustyhgi_tpu_torch.tools.chip_probe", "sweep"],
                           cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -832,7 +861,7 @@ def sweep(card: str) -> None:
     print(f"phase sweep: launches {launches}; {sum(1 for v in timed if v)} of {len(timed)} "
           f"choices timed")
     _check(any(timed), "chip_probe sweep timed no choice")
-    for kernel in ("K1", "K2", "K5", "X1"):
+    for kernel in ("K1", "K2", "K3", "K5", "X1"):
         _check(launches[kernel] > 0, f"chip_probe sweep never launched {kernel}")
 
 
@@ -880,15 +909,25 @@ def timing_inputs() -> dict:
     return inputs
 
 
-def decode_device_times(inputs: dict, card: str) -> dict:
-    """Phase 8, early, while the profiler's traces hold every record: K2's
-    and K5's device time and device launches a call on phase 8's own
+# The kernels whose device times and launches are traced early, on phase
+# 8's own inputs (:func:`kernel_device_times`).
+EARLY = ("K2", "K3", "K4", "K5")
+
+
+def kernel_device_times(inputs: dict, card: str) -> dict:
+    """Phase 8, early, while the profiler's traces hold every record: the
+    device time and device launches a call of K2, K3 (and K3 with no recon
+    wanted, as the bench calls it), K4 and K5, on phase 8's own planes,
     grids and quads; ``{(kernel, shape, preset): (ms, launches)}``."""
     times = {}
-    for (shape, preset), (img, _, grid, anchors, subbands) in inputs.items():
+    for (shape, preset), (img, table, grid, anchors, subbands) in inputs.items():
         hw = img.shape[-2:]
-        for kernel, fn in (("K2", lambda: cuda_codec.decode_plane(grid, 4)),
-                           ("K5", lambda: cuda_codec.decode_subbands(anchors, subbands, hw, 4))):
+        for kernel, fn in (
+                ("K2", lambda: cuda_codec.decode_plane(grid, 4)),
+                ("K3", lambda: cuda_codec.encode_subbands(img, 4, table)),
+                ("K3 no recon", lambda: cuda_codec.encode_subbands(img, 4, table, want_recon=False)),
+                ("K4", lambda: cuda_codec.assemble_grid(anchors, subbands, hw)),
+                ("K5", lambda: cuda_codec.decode_subbands(anchors, subbands, hw, 4))):
             dk, launched = _device_trace(fn)
             what = f"{kernel} {'x'.join(map(str, shape))} L4 {preset.name.lower()}"
             _check(dk is not None, f"{what}: the trace dropped records, no device time")
@@ -926,9 +965,9 @@ def _shown(d, e) -> str:
 
 
 def timings(inputs: dict, card: str, peak_ops: float, early: dict) -> dict:
-    """Phase 8: kernel and plain version, same inputs, same call.  K2's
-    and K5's device times and launches come from ``early``
-    (:func:`decode_device_times`, on the same inputs)."""
+    """Phase 8: kernel and plain version, same inputs, same call.  The
+    device times and launches of K2-K5 come from ``early``
+    (:func:`kernel_device_times`, on the same inputs)."""
     rows = {}
     for (shape, preset), (img, table, grid, anchors, subbands) in inputs.items():
         hw = img.shape[-2:]
@@ -968,7 +1007,7 @@ def timings(inputs: dict, card: str, peak_ops: float, early: dict) -> dict:
         ):
             # The kernel's trace first: the plain versions launch many
             # kernels, after which the profiler's traces drop records.
-            if kernel in ("K2", "K5"):
+            if kernel in EARLY:
                 dk, launched = early[kernel, shape, preset]
             else:
                 dk, launched = _device_trace(kern)
@@ -1051,6 +1090,31 @@ def k1_launches(rng, card: str) -> None:
           f"[{card}]")
 
 
+def subband_launches(rng, card: str) -> None:
+    """Phase 8, K3's and K4's device launches a call at 1080x1920: K3 one
+    when lossless at any depth, one when lossy up to FINE_LEVELS and one
+    more per coarser level, with or without recon; K4 one."""
+    img = torch.from_numpy(_natural_plane(rng, (1080, 1920))).to(DEVICE)
+    fine = cuda_codec.FINE_LEVELS
+    shown = []
+    for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
+        table = _table(preset)
+        for levels in (4, 8):
+            anchors, subbands, _ = cuda_codec.encode_subbands(img, levels, table)
+            k3 = 1 if table is None else 1 + max(levels - fine, 0)
+            for name, fn, want in (
+                    ("K3", lambda: cuda_codec.encode_subbands(img, levels, table), k3),
+                    ("K3 no recon", lambda: cuda_codec.encode_subbands(img, levels, table,
+                                                                       want_recon=False), k3),
+                    ("K4", lambda: cuda_codec.assemble_grid(anchors, subbands, img.shape), 1)):
+                n = _device_trace(fn)[1]
+                _check(n == want, f"{name} {preset.name.lower()} L{levels}: {n} device "
+                                  f"launches, {want} expected")
+                shown.append(f"{name} {preset.name.lower()} L{levels} {n:g}")
+    print(f"K3/K4 device launches a call at 1080x1920 (torch.profiler): {', '.join(shown)} "
+          f"[{card}]")
+
+
 def x1_scaling(rng, card: str, chain: dict) -> None:
     """Phase 8, X1 alone: its device time against its rows T and its
     threads B*L at medium, beside its chain bound.  A lane codes its T
@@ -1095,7 +1159,8 @@ def main() -> int:
         print(log.read_text().rstrip())
         for name, info in chip_probe.ptxas_summary(
                 log.read_text(), ("encode_lossless", "encode_tiles", "encode_level",
-                                  "decode_tiles", "rans_histogram", "rans_normalize",
+                                  "decode_tiles", "encode_sub_level", "encode_sub_lossless",
+                                  "assemble_rows", "rans_histogram", "rans_normalize",
                                   "rans_encode_lanes")).items():
             print(f"ptxas {name}: {info}")
     t0 = time.perf_counter()
@@ -1107,8 +1172,9 @@ def main() -> int:
     # traces drop some (PERF.md section 6).
     k1_launches(np.random.default_rng([SEED, 1]), card)
     decode_launches(np.random.default_rng([SEED, 2]), card)
+    subband_launches(np.random.default_rng([SEED, 3]), card)
     inputs = timing_inputs()
-    early = decode_device_times(inputs, card)
+    early = kernel_device_times(inputs, card)
     rng = np.random.default_rng(SEED)
     worst = compare_kernels(rng)
     worst.update(compare_fast_kernels(rng))

@@ -19,13 +19,14 @@
 // anchors (hp >> L) x (wp >> L), then per level l, coarsest first, the
 // quads q01, q10, q11 of the level's cells, each (hp >> (L-l)) x
 // (wp >> (L-l)), where hp x wp is the image padded up to multiples of
-// 2^L (the canvas).  K3 runs the level loop over every cell of the canvas
-// lattice, so it also emits the residuals of pixels that lie in the
-// padding, where the source reads 0: code(0 - pred), exactly what the JAX
-// encode_subbands and its Pallas kernel emit there.  K5 reads its
-// residuals straight from the quads; the TPU's repack-then-decode split
-// buys nothing here, so there is no grid in between.  Stopped after `upto`
-// levels, it writes the preview: the full image sampled every
+// 2^L (the canvas).  K3 codes every cell of the canvas lattice, so it also
+// emits the residuals of pixels that lie in the padding, where the source
+// reads 0: code(0 - pred), exactly what the JAX encode_subbands and its
+// Pallas kernel emit there; their reconstruction is never written, so a
+// finer level reads such a corner as 0, as one outside the canvas.  K5
+// reads its residuals straight from the quads; the TPU's repack-then-decode
+// split buys nothing here, so there is no grid in between.  Stopped after
+// `upto` levels, it writes the preview: the full image sampled every
 // 2^(L-upto) pixels.  K4 is a gather from the quads into the grid.
 //
 // None of the TPU kernels' tiling is carried over: no row tiles, no u32
@@ -88,11 +89,36 @@
 // cuts few tiles, as a small preview does, is one block's latency end to
 // end, so the wrappers pick smaller tiles for it (cuda_codec.decode_tile).
 //
-// K3 keeps one launch per level, one thread per cell of the `step`
-// lattice (a level writes only positions off its lattice and reads only
-// positions on it, so a launch per level is race-free), a thread reading
-// 4 corners and coding up to 3 pixels; launches on one stream order the
-// levels.
+// K3 is K1's encode writing quads, in K1's two designs, and bound, like
+// K1, by its bytes (a source byte read once, a quad byte written once,
+// plus the recon when lossy).  Both leave their residuals through one
+// writer, K4's gather inverted (scatter_run): a 16-byte run of a canvas
+// row of class k (the lowest set bit of its row) is peeled by byte
+// permutes into the k + 2 quad rows it belongs to, 8 >> j bytes of each,
+// one store each, and a warp's stores to a quad row are coalesced.
+//   * lossless: one launch at any depth (encode_sub_lossless), lossless
+//     K1's runs over the canvas, a warp on 512 bytes of one row; rows
+//     below the plane read 0.  The recon is the source, never written.
+//   * lossy: lossy K1's tiles (encode_tiles, OUT kQuadsOut) cut on the
+//     canvas, every canvas position coded and the recon kept only inside
+//     the plane; the tile's rows are written by class (class_row), so
+//     that a warp's scatters take one path.  Levels coarser than 2^F one
+//     launch each (encode_sub_level), the first storing the anchors, else
+//     the tiles do: one launch at L <= F.  The recon is not written when
+//     the caller does not want it and no coarser level reads it.
+//   Why a grid run and not a quad run: a thread that owned 16 quad columns
+//   of one level, reading the three source rows its cells touch, has three
+//   times fewer threads in flight than K1's runs, and took 2.5 times K1's
+//   time at one 1080x1920 plane.
+//
+// K4 (assemble_rows) is bound by bytes too, one read and one write a
+// pixel.  It takes the grid row by row: row y has class k = the lowest set
+// bit of y (capped at L), and all its pixels come from k + 2 quad rows, so
+// a thread writes one 16-byte run of a row with one store after 2 to 5
+// narrow loads (8 >> j bytes of each), interleaved by byte permutes, and a
+// warp covers 512 bytes of one row: every class is uniform across the
+// warp and every load coalesced.  No division: the run and the row come
+// from the 2-D launch.
 //
 // Every effective depth (0..30), every shape including 0x0 and 1xN, both
 // predictors and every quantizer table are covered; offsets are 64-bit,
@@ -110,12 +136,16 @@ struct QTable {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileThreads = 256;  // threads of a block of the tiles of lossy K1, K2 and K5
+constexpr int kTileThreads = 256;  // threads of a block of the tiles of lossy K1, K3, K2 and K5
+// Blocks of lossy K1's and K3's tiles an SM keeps at once: the registers a
+// thread may use are capped at 65536 / (256 * 5), 48, so that a fifth
+// block fits (a 64 x 128 tile's shared memory would let eight).
+constexpr int kTileBlocks = 5;
 constexpr int kMaxGridY = 65535;  // batch planes per launch
 // Dims are at most 2^30 (the wrapper checks), so depths stop at 30.
 constexpr int kMaxLevels = 31;
-constexpr int kRun = 16;          // pixels of a row a lossless K1 thread codes
-constexpr int kMaxFine = 5;       // the tiled levels of lossy K1, K2 and K5 at most
+constexpr int kRun = 16;          // pixels of a row a lossless K1 or K3 thread codes
+constexpr int kMaxFine = 5;       // the tiled levels of lossy K1, K3, K2 and K5 at most
 constexpr int kMaxSharedBytes = 227 * 1024;
 
 enum Predictor { kCrossed = 0, kLeftTop = 1 };
@@ -188,12 +218,13 @@ __device__ __forceinline__ void load_table(uint8_t* qt, const KTable& table) {
 // The lossless residual of pixel (y, x) of plane p: its level from the
 // lowest set bit t of y | x (t >= levels, or y = x = 0: an anchor, stored
 // raw); the corners of its cell, of side 2^(t+1), read from the source.
+// A pixel outside the plane (K3's canvas padding) reads 0.
 template <int PRED>
 __device__ __forceinline__ uint32_t lossless_pixel(const uint8_t* __restrict__ p, int h,
                                                    int w, int y, int x, int levels) {
   const int yx = y | x;
   const int t = yx == 0 ? levels : min(__ffs(yx) - 1, levels);
-  const int v = p[(long long)y * w + x];
+  const int v = y < h && x < w ? p[(long long)y * w + x] : 0;
   if (t >= levels) return (uint32_t)v;
   const int step = 2 << t;
   return (uint32_t)((v - cell_prediction<PRED>(p, h, w, y & -step, x & -step, step)) & 255);
@@ -265,14 +296,16 @@ __host__ __device__ constexpr bool reads_row(int TY, int d) {
   return used;
 }
 
-// A run of kRun pixels of row y (lowest set bit TY) starting at column x0,
-// kRun <= w - x0: every row its cells read is one 16-byte load (zero below
-// the plane) plus the byte after it (zero past the plane's right edge); at
-// TY == 4 column 0, whose cell may reach beyond the run, reads its corners
-// one by one.
+// The residuals `out` of a run of kRun pixels of row y (lowest set bit TY)
+// starting at column x0 (offset k in the plane), kRun <= w - x0: every row
+// its cells read is one 16-byte load (zero below the plane, the run's own
+// row included, as in K3's canvas padding) plus the byte after it (zero
+// past the plane's right edge); at TY == 4 column 0, whose cell may reach
+// beyond the run, reads its corners one by one.
 template <int PRED, bool VEC, int TY>
-__device__ __forceinline__ void lossless_run(const uint8_t* __restrict__ p, uint8_t* __restrict__ g,
-                                             int h, int w, int y, int x0, int levels, long long k) {
+__device__ __forceinline__ void lossless_run(const uint8_t* __restrict__ p, int h, int w, int y,
+                                             int x0, int levels, long long k,
+                                             uint32_t (&out)[4]) {
   const bool right = x0 + kRun < w;
   uint32_t rows[kRowSlots][4];
   int ends[kRowSlots];
@@ -290,7 +323,7 @@ __device__ __forceinline__ void lossless_run(const uint8_t* __restrict__ p, uint
     }
   }
   const uint32_t(&own)[4] = rows[row_slot(0)];
-  uint32_t out[4] = {0u, 0u, 0u, 0u};
+  out[0] = out[1] = out[2] = out[3] = 0u;
 #pragma unroll
   for (int j = 0; j < kRun; ++j) {
     uint32_t r;
@@ -308,7 +341,20 @@ __device__ __forceinline__ void lossless_run(const uint8_t* __restrict__ p, uint
     }
     out[j >> 2] |= r << (8 * (j & 3));
   }
-  store_run<VEC>(g + k, out);
+}
+
+// lossless_run specialized on the lowest set bit of y (4 for 4 or more).
+template <int PRED, bool VEC>
+__device__ __forceinline__ void lossless_run16(const uint8_t* __restrict__ p, int h, int w,
+                                               int y, int x0, int levels, long long k,
+                                               uint32_t (&out)[4]) {
+  switch (y == 0 ? 4 : min(__ffs(y) - 1, 4)) {
+    case 0: lossless_run<PRED, VEC, 0>(p, h, w, y, x0, levels, k, out); break;
+    case 1: lossless_run<PRED, VEC, 1>(p, h, w, y, x0, levels, k, out); break;
+    case 2: lossless_run<PRED, VEC, 2>(p, h, w, y, x0, levels, k, out); break;
+    case 3: lossless_run<PRED, VEC, 3>(p, h, w, y, x0, levels, k, out); break;
+    default: lossless_run<PRED, VEC, 4>(p, h, w, y, x0, levels, k, out); break;
+  }
 }
 
 // One thread per run of kRun pixels of a row; `runs` runs a row, `total`
@@ -333,13 +379,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < m; ++j) g[k + j] = (uint8_t)lossless_pixel<PRED>(p, h, w, y, x0 + j, levels);
     return;
   }
-  switch (y == 0 ? 4 : min(__ffs(y) - 1, 4)) {
-    case 0: lossless_run<PRED, VEC, 0>(p, g, h, w, y, x0, levels, k); break;
-    case 1: lossless_run<PRED, VEC, 1>(p, g, h, w, y, x0, levels, k); break;
-    case 2: lossless_run<PRED, VEC, 2>(p, g, h, w, y, x0, levels, k); break;
-    case 3: lossless_run<PRED, VEC, 3>(p, g, h, w, y, x0, levels, k); break;
-    default: lossless_run<PRED, VEC, 4>(p, g, h, w, y, x0, levels, k); break;
-  }
+  uint32_t out[4];
+  lossless_run16<PRED, VEC>(p, h, w, y, x0, levels, k, out);
+  store_run<VEC>(g + k, out);
 }
 
 // -- K1, lossy: coarse levels one launch each, the finest F tiled -------------
@@ -521,16 +563,243 @@ __device__ __forceinline__ void write_tile(int h, int w, int y0, int x0, int th,
   }
 }
 
+// Where K3's tile launch writes, passed by value: level step 2^(t+1) has
+// quads q[t][0..2] (q01, q10, q11), each (hp >> (t+1)) x (wp >> (t+1)) a
+// plane of the hp x wp canvas; the anchors, (hp >> fine) x (wp >> fine) a
+// plane, when no coarser level ran (else null: the first coarse launch
+// stores them).
+struct TileQuadsOut {
+  uint8_t* q[kMaxFine][3];
+  uint8_t* anchors;
+};
+
+// n bytes (n <= 16) of v to p: one 16-byte store where p lies on a
+// 16-byte boundary and n is 16; else, for n = 16, 8- or 4-byte stores as
+// p allows, and byte stores for a part.
+__device__ __forceinline__ void store_piece(uint8_t* p, uint4 v, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (n == 16 && (a & 15) == 0) {
+    *reinterpret_cast<uint4*>(p) = v;
+    return;
+  }
+  const uint32_t r[4] = {v.x, v.y, v.z, v.w};
+  // Unrolled over the 16 bytes, so that r stays in registers.
+  const int step = n == 16 && (a & 7) == 0 ? 8 : n == 16 && (a & 3) == 0 ? 4 : 1;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (j >= n) break;
+    if (step == 8 && (j & 7) == 0)
+      *reinterpret_cast<uint2*>(p + j) = make_uint2(r[j >> 2], r[(j >> 2) + 1]);
+    else if (step == 4 && (j & 3) == 0)
+      *reinterpret_cast<uint32_t*>(p + j) = r[j >> 2];
+    else if (step == 1)
+      p[j] = (uint8_t)(r[j >> 2] >> (8 * (j & 3)));
+  }
+}
+
+// n (1, 2, 4 or 8) bytes of v to p: one store where p is aligned to n,
+// else byte by byte.
+__device__ __forceinline__ void store_bytes(uint8_t* p, uint64_t v, int n) {
+  if ((reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0) {
+    switch (n) {
+      case 8: *reinterpret_cast<uint64_t*>(p) = v; return;
+      case 4: *reinterpret_cast<uint32_t*>(p) = (uint32_t)v; return;
+      case 2: *reinterpret_cast<uint16_t*>(p) = (uint16_t)v; return;
+      default: *p = (uint8_t)v; return;
+    }
+  }
+  for (int i = 0; i < n; ++i) p[i] = (uint8_t)(v >> (8 * i));
+}
+
+// The even (kEven) or odd (kOdd) bytes of 16, 8, 4 or 2 bytes: byte
+// de-interleaves, the inverse of zip8, zip4, zip2.
+constexpr uint32_t kEven = 0x6420, kOdd = 0x7531;
+__device__ __forceinline__ uint64_t unzip16(uint4 v, uint32_t sel) {
+  return (uint64_t)__byte_perm(v.z, v.w, sel) << 32 | __byte_perm(v.x, v.y, sel);
+}
+__device__ __forceinline__ uint32_t unzip8(uint64_t v, uint32_t sel) {
+  return __byte_perm((uint32_t)v, (uint32_t)(v >> 32), sel);
+}
+__device__ __forceinline__ uint32_t unzip4(uint32_t v, uint32_t sel) {
+  return __byte_perm(v, 0u, sel == kEven ? 0x4420 : 0x4431);  // 2 bytes, high half 0
+}
+__device__ __forceinline__ uint32_t unzip2(uint32_t v, uint32_t sel) {
+  return (v >> (sel == kEven ? 0 : 8)) & 255u;
+}
+
+// Where K3 writes a residual of the canvas: quad(t, which) is the plane's
+// quad `which` (q01, q10, q11) of level step 2^(t+1), wp >> (t+1) bytes a
+// row, for t < fine; anchors (null: not this launch's) the plane's
+// anchors, wp >> levels a row.  A position of a level at or above `fine`
+// but below `levels` is a coarser launch's, and is left alone.
+template <typename Quad>
+__device__ __forceinline__ void scatter_byte(const Quad& quad, uint8_t* anchors, int wp,
+                                             int levels, int fine, int y, int x, uint32_t v) {
+  const int yx = y | x;
+  const int t = yx == 0 ? levels : min(__ffs(yx) - 1, levels);
+  if (t >= levels) {
+    if (anchors != nullptr)
+      anchors[(long long)(y >> levels) * (wp >> levels) + (x >> levels)] = (uint8_t)v;
+    return;
+  }
+  if (t >= fine) return;
+  const int which = ((y >> t) & 1) * 2 + ((x >> t) & 1) - 1;
+  quad(t, which)[(long long)(y >> (t + 1)) * (wp >> (t + 1)) + (x >> (t + 1))] = (uint8_t)v;
+}
+
+// K3's writer, K4's gather inverted: the residuals v of a 16-byte run of
+// canvas row y at column x0 (a multiple of 16, x0 + 16 <= wp) go to the
+// k + 2 quad rows of the row's class k = the lowest set bit of y (capped at
+// levels; y = 0: levels).  Peeling the odd bytes off, finest first, gives
+// for each j < K = min(k, 4) the 8 >> j q01 bytes of level step 2^(j+1);
+// what is left, the run's columns at multiples of 2^K, is the q10 and q11
+// bytes of level step 2^(k+1) interleaved (k < levels), the anchors
+// (k = levels <= 4), or column x0 alone (K = 4).  Each lands with one
+// store (scatter_byte's rules for what is stored).
+template <typename Quad>
+__device__ __forceinline__ void scatter_run(const Quad& quad, uint8_t* anchors, int wp,
+                                            int levels, int fine, int y, int x0, uint4 v) {
+  const int L = levels;
+  const int k = y == 0 ? L : min(__ffs(y) - 1, L);
+  const int K = min(k, 4);
+  auto put = [&](int t, int which, uint64_t bytes, int n) {
+    if (t < fine)
+      store_bytes(quad(t, which) + (long long)(y >> (t + 1)) * (wp >> (t + 1)) + (x0 >> (t + 1)),
+                  bytes, n);
+  };
+  auto put_anchors = [&](uint64_t bytes, int n) {
+    if (anchors != nullptr)
+      store_bytes(anchors + (long long)(y >> L) * (wp >> L) + (x0 >> L), bytes, n);
+  };
+  if (K == 0) {
+    if (k < L) {
+      put(0, 1, unzip16(v, kEven), 8);
+      put(0, 2, unzip16(v, kOdd), 8);
+    } else if (anchors != nullptr) {  // L = 0: the canvas is the anchors
+      store_piece(anchors + (long long)y * wp + x0, v, 16);
+    }
+    return;
+  }
+  put(0, 0, unzip16(v, kOdd), 8);
+  const uint64_t e8 = unzip16(v, kEven);  // columns at multiples of 2
+  if (K == 1) {
+    if (k < L) {
+      put(1, 1, unzip8(e8, kEven), 4);
+      put(1, 2, unzip8(e8, kOdd), 4);
+    } else {
+      put_anchors(e8, 8);
+    }
+    return;
+  }
+  put(1, 0, unzip8(e8, kOdd), 4);
+  const uint32_t e4 = unzip8(e8, kEven);  // multiples of 4
+  if (K == 2) {
+    if (k < L) {
+      put(2, 1, unzip4(e4, kEven), 2);
+      put(2, 2, unzip4(e4, kOdd), 2);
+    } else {
+      put_anchors(e4, 4);
+    }
+    return;
+  }
+  put(2, 0, unzip4(e4, kOdd), 2);
+  const uint32_t e2 = unzip4(e4, kEven);  // multiples of 8
+  if (K == 3) {
+    if (k < L) {
+      put(3, 1, unzip2(e2, kEven), 1);
+      put(3, 2, unzip2(e2, kOdd), 1);
+    } else {
+      put_anchors(e2, 2);
+    }
+    return;
+  }
+  put(3, 0, unzip2(e2, kOdd), 1);
+  scatter_byte(quad, anchors, wp, L, fine, y, x0, unzip2(e2, kEven));  // column x0 alone
+}
+
+// A run of n <= 16 residuals (r, little-endian) of canvas row y from
+// column x0: scatter_run when it is whole, else byte by byte.
+template <typename Quad>
+__device__ __forceinline__ void scatter_residuals(const Quad& quad, uint8_t* anchors, int wp,
+                                                  int levels, int fine, int y, int x0, int n,
+                                                  const uint32_t (&r)[4]) {
+  if (n == 16) {
+    scatter_run(quad, anchors, wp, levels, fine, y, x0, make_uint4(r[0], r[1], r[2], r[3]));
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (j < n) scatter_byte(quad, anchors, wp, levels, fine, y, x0 + j, byte_of(r, j));
+}
+
+// The tile row of rank `rank` when a tile's th rows (th a multiple of 16)
+// are taken by class: the th/2 odd rows first, then the th/4 of lowest set
+// bit 1, th/8 of bit 2, th/16 of bit 3, and last the th/16 multiples of
+// 16.  A 64 x 128 tile's write then gives every warp 4 rows of one class.
+__device__ __forceinline__ int class_row(int rank, int th) {
+  int base = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int n = th >> (c + 1);
+    if (rank < base + n) return ((rank - base) << (c + 1)) | (1 << c);
+    base += n;
+  }
+  return (rank - base) << 4;
+}
+
+// A K3 tile's output after its levels: its canvas rows, 16 bytes a thread,
+// rows taken by class (class_row) so that a warp's scatters take one path,
+// each run's residuals (sc) scattered to the quads of the tile's `fine`
+// levels and, when no coarser level ran, to the anchors (scatter_run), and
+// its recon (rc) written where it lies inside the plane, when recon is not
+// null.  Plane b.
+template <bool VEC>
+__device__ __forceinline__ void write_tile_quads(const uint8_t* sc, const uint8_t* rc, int pitch,
+                                                 const TileQuadsOut& out, uint8_t* recon,
+                                                 long long b, int h, int w, int hp, int wp,
+                                                 int levels, int fine, int y0, int x0, int th,
+                                                 int tw) {
+  auto quad = [&](int t, int which) {
+    return out.q[t][which] + b * (long long)(hp >> (t + 1)) * (wp >> (t + 1));
+  };
+  uint8_t* anchors = out.anchors == nullptr
+                         ? nullptr
+                         : out.anchors + b * (long long)(hp >> levels) * (wp >> levels);
+  for (Walk it(tw / 16); it.r < th; it.next()) {
+    const int row = class_row(it.r, th);
+    const int gy = y0 + row, gx = x0 + 16 * it.c;
+    if (gy >= hp || gx >= wp) continue;
+    const int o = row * pitch + 16 * it.c;
+    const uint4 v = *reinterpret_cast<const uint4*>(sc + o);
+    const uint32_t r[4] = {v.x, v.y, v.z, v.w};
+    scatter_residuals(quad, anchors, wp, levels, fine, gy, gx, min(16, wp - gx), r);
+    if (recon == nullptr || gy >= h || gx >= w) continue;
+    const long long k = (long long)gy * w + gx;
+    if (VEC && gx + 16 <= w) {
+      *reinterpret_cast<uint4*>(recon + k) = *reinterpret_cast<const uint4*>(rc + o);
+    } else {
+      for (int j = 0; j < 16 && gx + j < w; ++j) recon[k + j] = rc[o + j];
+    }
+  }
+}
+
+enum TileOut { kGridOut = 0, kQuadsOut = 1 };
+
 // The finest `fine` levels of one th x tw tile (blockIdx.x; tiles_x a row
-// of tiles) of plane blockIdx.y, th and tw multiples of 16 and of 2^fine.
-// `coarse`: coarser levels ran before, so the 2^fine lattice holds their
-// reconstruction and grid; otherwise it is the anchors, the source.  VEC:
-// w % 16 == 0 and every buffer on a 16-byte boundary.
-template <int PRED, bool VEC>
-__global__ void __launch_bounds__(kTileThreads)
+// of tiles) of plane b0 + blockIdx.y, th and tw multiples of 16 and of
+// 2^fine.  OUT kGridOut (K1) writes the tile's grid and recon; kQuadsOut
+// (K3) cuts its tiles on the hp x wp canvas, codes every canvas position
+// (a pixel in the padding reads 0), and writes the quads (`quads`) and,
+// where recon is not null, the recon inside the plane.  `coarse`: coarser
+// levels ran before, so the 2^fine lattice holds their reconstruction
+// (and, for K1, grid); otherwise it is the anchors, the source.  VEC:
+// w % 16 == 0 and src, grid and recon on 16-byte boundaries.
+template <int PRED, bool VEC, int OUT>
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
     encode_tiles(const uint8_t* __restrict__ src, uint8_t* __restrict__ grid,
-                 uint8_t* __restrict__ recon, KTable table, int h, int w, int fine,
-                 bool coarse, int th, int tw, int tiles_x) {
+                 uint8_t* __restrict__ recon, const __grid_constant__ TileQuadsOut quads,
+                 KTable table, int h, int w, int hp, int wp, int levels, int fine, bool coarse,
+                 int th, int tw, int tiles_x, int b0) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int S = 1 << fine;
   const int rh = th + S, rw = tw + S;  // the tile and its halo; rows and columns 0..rh, 0..rw
@@ -538,10 +807,11 @@ __global__ void __launch_bounds__(kTileThreads)
   uint8_t* qt = smem;
   uint8_t* rc = smem + 256;           // reconstruction
   uint8_t* sc = rc + (rh + 1) * pitch;  // source, then residuals
-  const long long plane = (long long)blockIdx.y * h * w;
+  const long long b = (long long)b0 + blockIdx.y;
+  const long long plane = b * h * w;
   src += plane;
-  grid += plane;
-  recon += plane;
+  if (OUT == kGridOut) grid += plane;
+  if (OUT == kGridOut || recon != nullptr) recon += plane;
   const int y0 = (int)(blockIdx.x / tiles_x) * th;
   const int x0 = (int)(blockIdx.x % tiles_x) * tw;
 
@@ -553,7 +823,7 @@ __global__ void __launch_bounds__(kTileThreads)
   });
   __syncthreads();
   // The 2^fine lattice over the region, edges included.  After coarser
-  // levels it is their reconstruction, and their grid values replace the
+  // levels it is their reconstruction, and K1's grid values replace the
   // source at the tile's own lattice points, so that the final write keeps
   // them; otherwise it is the anchors.
   for (Walk it(rw / S + 1); it.r <= rh / S; it.next()) {
@@ -564,7 +834,7 @@ __global__ void __launch_bounds__(kTileThreads)
     if (coarse) {
       const long long k = (long long)gy * w + gx;
       rc[o] = recon[k];
-      if (r < th && c < tw) sc[o] = grid[k];
+      if (OUT == kGridOut && r < th && c < tw) sc[o] = grid[k];
     } else {
       rc[o] = sc[o];
     }
@@ -579,22 +849,24 @@ __global__ void __launch_bounds__(kTileThreads)
     for (Walk it(rw / step); it.r < rows;) {
       // Two cells a round: their reads before their writes (the cells'
       // pixels are distinct and none is a corner of this level), so the
-      // latencies of both overlap.
+      // latencies of both overlap.  A cell's residuals are kept wherever
+      // it lies (K3 emits those of the padding), its reconstruction only
+      // inside the plane, so that a corner outside the plane reads 0.
       int pred[2], o[2][3], v[2][3];
-      bool in[2][3];
+      bool in[2][3], cell[2];
 #pragma unroll
       for (int u = 0; u < 2; ++u, it.next()) {
-        const bool cell = it.r < rows;
-        const int ly = cell ? it.r * step : 0, lx = cell ? it.c * step : 0;
+        cell[u] = it.r < rows;
+        const int ly = cell[u] ? it.r * step : 0, lx = cell[u] ? it.c * step : 0;
         const uint8_t* c0 = rc + ly * pitch + lx;
         pred[u] = tree<PRED>(c0[0], c0[step], c0[step * pitch], c0[step * pitch + step]);
         const bool right = x0 + lx + sub < w, down = y0 + ly + sub < h;
         o[u][0] = ly * pitch + lx + sub;
         o[u][1] = (ly + sub) * pitch + lx;
         o[u][2] = (ly + sub) * pitch + lx + sub;
-        in[u][0] = cell && right && y0 + ly < h;
-        in[u][1] = cell && down && x0 + lx < w;
-        in[u][2] = cell && right && down;
+        in[u][0] = cell[u] && right && y0 + ly < h;
+        in[u][1] = cell[u] && down && x0 + lx < w;
+        in[u][2] = cell[u] && right && down;
 #pragma unroll
         for (int j = 0; j < 3; ++j) v[u][j] = sc[o[u][j]];
       }
@@ -606,7 +878,9 @@ __global__ void __launch_bounds__(kTileThreads)
       for (int u = 0; u < 2; ++u)
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
-          if (!in[u][j]) continue;  // outside the plane, or no cell
+          // K1 writes only inside the plane; K3 also the padding's residuals.
+          if (OUT == kQuadsOut && cell[u] && !in[u][j]) sc[o[u][j]] = (uint8_t)v[u][j];
+          if (!in[u][j]) continue;
           sc[o[u][j]] = (uint8_t)v[u][j];
           rc[o[u][j]] = (uint8_t)((pred[u] + v[u][j]) & 255);
         }
@@ -616,6 +890,11 @@ __global__ void __launch_bounds__(kTileThreads)
   if (words) {
     finest_level_words<PRED>(rc, sc, pitch, rh, rw, qt);
     __syncthreads();
+  }
+  if (OUT == kQuadsOut) {
+    write_tile_quads<VEC>(sc, rc, pitch, quads, recon, b, h, w, hp, wp, levels, fine, y0, x0, th,
+                          tw);
+    return;
   }
   write_tile<VEC>(
       h, w, y0, x0, th, tw, pitch,
@@ -658,71 +937,96 @@ __global__ void decode_level(const uint8_t* __restrict__ grid, uint8_t* out,
   }
 }
 
-// K3's anchors: anchors[cell] = src[k] on the 2^L lattice, and
-// recon[k] = src[k] when recon is not null.  The packed anchors have the
-// lattice's wc columns.
-__global__ void pack_anchors(const uint8_t* __restrict__ src,
-                             uint8_t* __restrict__ anchors,
-                             uint8_t* __restrict__ recon, int h, int w,
-                             int step, int wc, long long cells) {
-  const long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= cells) return;
-  const long long k = (long long)blockIdx.y * h * w +
-                      (long long)(cell / wc) * step * w +
-                      (long long)(cell % wc) * step;
-  const uint8_t v = src[k];
-  anchors[(long long)blockIdx.y * cells + cell] = v;
-  if (recon != nullptr) recon[k] = v;
-}
-
-// Codes one refined pixel of K3 into its quad at qk; a pixel in the
-// canvas padding reads 0 and has no recon.
-template <bool LOSSLESS>
-__device__ __forceinline__ void emit(const uint8_t* __restrict__ src,
-                                     uint8_t* recon, uint8_t* __restrict__ quad,
-                                     long long qk, bool inside, long long k,
-                                     int pred, const uint8_t* qt) {
-  const int g = residual<LOSSLESS>(inside ? src[k] : 0, pred, qt);
-  quad[qk] = (uint8_t)g;
-  if (!LOSSLESS && inside) recon[k] = (uint8_t)((pred + g) & 255);
-}
-
-// K3, one level: one thread per cell of the canvas lattice (qw columns,
-// `cells` a plane).  It writes the cell's three quads also where their
-// pixel lies in the padding; the recon is written only inside [h, w], so
-// a padding corner reads 0 at the finer levels, as one outside the
-// canvas does.  Lossless reads the corners from the source.
-template <int PRED, bool LOSSLESS>
-__global__ void encode_sub_level(const uint8_t* __restrict__ src,
-                                 uint8_t* recon, uint8_t* __restrict__ q01,
-                                 uint8_t* __restrict__ q10,
-                                 uint8_t* __restrict__ q11, KTable table, int h,
-                                 int w, int step, int qw, long long cells) {
+// K3, lossy, one level coarser than the tiles: K1's encode_level writing
+// quads, one thread per cell of the canvas lattice (qw columns, `cells` a
+// plane).  It codes the cell's three pixels also where they lie in the
+// padding, where the source reads 0; the recon is written only inside the
+// plane, so that a padding corner reads 0 at the finer levels, as one
+// outside the canvas does.  The first level (`anchors` not null) also
+// stores the anchors, its cells' top-left corners (0 in the padding), and
+// their recon, and reads its corners from the source.
+template <int PRED>
+__global__ void encode_sub_level(const uint8_t* __restrict__ src, uint8_t* __restrict__ recon,
+                                 uint8_t* __restrict__ anchors, uint8_t* __restrict__ q01,
+                                 uint8_t* __restrict__ q10, uint8_t* __restrict__ q11,
+                                 KTable table, int h, int w, int step, int qw, long long cells) {
   __shared__ __align__(16) uint8_t qt[256];
-  if (!LOSSLESS) {
-    load_table(qt, table);
-    __syncthreads();
-  }
+  load_table(qt, table);
+  __syncthreads();
   const long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (cell >= cells) return;
   const long long plane = (long long)blockIdx.y * h * w;
   src += plane;
-  if (!LOSSLESS) recon += plane;
+  recon += plane;
   const long long qk = (long long)blockIdx.y * cells + cell;
   const int y0 = (int)(cell / qw) * step;
   const int x0 = (int)(cell % qw) * step;
   const int sub = step >> 1;
-  const int pred =
-      cell_prediction<PRED>(LOSSLESS ? src : recon, h, w, y0, x0, step);
-  const bool top = y0 < h;
-  const bool left = x0 < w;
-  const bool right = sub < w - x0;
-  const bool down = sub < h - y0;
+  const bool top = y0 < h, left = x0 < w;
+  const bool right = sub < w - x0, down = sub < h - y0;
   const long long k = (long long)y0 * w + x0;
+  if (anchors != nullptr) {
+    const uint8_t v = top && left ? src[k] : 0;
+    anchors[qk] = v;
+    if (top && left) recon[k] = v;
+  }
+  const int pred = cell_prediction<PRED>(anchors != nullptr ? src : recon, h, w, y0, x0, step);
   const long long kd = k + (long long)sub * w;
-  emit<LOSSLESS>(src, recon, q01, qk, top && right, k + sub, pred, qt);
-  emit<LOSSLESS>(src, recon, q10, qk, down && left, kd, pred, qt);
-  emit<LOSSLESS>(src, recon, q11, qk, down && right, kd + sub, pred, qt);
+  const long long ks[3] = {k + sub, kd, kd + sub};
+  const bool in[3] = {top && right, down && left, down && right};
+  uint8_t* const q[3] = {q01, q10, q11};
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int g = residual<false>(in[j] ? src[ks[j]] : 0, pred, qt);
+    q[j][qk] = (uint8_t)g;
+    if (in[j]) recon[ks[j]] = (uint8_t)((pred + g) & 255);
+  }
+}
+
+// K3's lossless output: the anchors, then level l's q01, q10, q11 at
+// q[3l .. 3l + 2].  A __grid_constant__ parameter: a thread reads the
+// entries of its row's class at an index known only at run time straight
+// from the parameter space, with no copy.
+struct SubbandsOut {
+  uint8_t* anchors;
+  uint8_t* q[3 * kMaxLevels];
+};
+
+// K3, lossless: the whole layout in one launch, lossless K1's runs with
+// their residuals scattered to the quads.  The reconstruction is the
+// source, so no level waits on another: a thread codes a run of 16 pixels
+// of a canvas row as lossless K1 does (lossless_run, rows below the plane
+// reading 0; a run past its right edge pixel by pixel) and scatters it to
+// the quad rows of the row's class (scatter_run).  A warp covers 512 bytes of one
+// row, 8 warps a block on 8 rows (grid-strided past 65535 blocks of rows),
+// plane b0 + blockIdx.z of h x w on the hp x wp canvas.  VEC: w % 16 == 0
+// and src on a 16-byte boundary.
+template <int PRED, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    encode_sub_lossless(const uint8_t* __restrict__ src, const __grid_constant__ SubbandsOut out,
+                        int h, int w, int levels, int hp, int wp, int b0) {
+  constexpr int kWarps = kThreads / 32;
+  const int x0 = kRun * ((int)blockIdx.x * 32 + (int)(threadIdx.x & 31));
+  if (x0 >= wp) return;
+  const long long b = (long long)b0 + blockIdx.z;
+  const uint8_t* p = src + b * h * w;
+  auto quad = [&](int t, int which) {
+    return out.q[3 * (levels - 1 - t) + which] + b * (long long)(hp >> (t + 1)) * (wp >> (t + 1));
+  };
+  uint8_t* anchors = out.anchors + b * (long long)(hp >> levels) * (wp >> levels);
+  const int n = min(kRun, wp - x0);
+  for (int y = (int)blockIdx.y * kWarps + (int)(threadIdx.x >> 5); y < hp;
+       y += (int)gridDim.y * kWarps) {
+    uint32_t r[4] = {0u, 0u, 0u, 0u};
+    if (levels > 0 && x0 + kRun <= w) {
+      lossless_run16<PRED, VEC>(p, h, w, y, x0, levels, (long long)y * w + x0, r);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kRun; ++j)
+        if (j < n) r[j >> 2] |= lossless_pixel<PRED>(p, h, w, y, x0 + j, levels) << (8 * (j & 3));
+    }
+    scatter_residuals(quad, anchors, wp, levels, levels, y, x0, n, r);
+  }
 }
 
 // K5, one coarse level: K2's decode_level with the residuals read from
@@ -770,35 +1074,6 @@ __global__ void decode_sub_level(const uint8_t* __restrict__ anchors,
 struct Quads {
   const uint8_t* q[3 * kMaxLevels];
 };
-
-// K4: one thread per grid pixel (y, x), a gather.  The lowest set bit t
-// of y | x names the pixel's level: t >= levels (or y = x = 0) is an
-// anchor, otherwise level levels-1-t, whose cells have side 2^(t+1), and
-// bit t of y and of x pick q01, q10 or q11.  Plane b0 + blockIdx.y.
-__global__ void assemble_pixels(const uint8_t* __restrict__ anchors, Quads qs,
-                                uint8_t* __restrict__ grid, int h, int w,
-                                int levels, int aw, long long aplane,
-                                long long pixels, int b0) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= pixels) return;
-  const long long b = (long long)b0 + blockIdx.y;
-  const int y = (int)(i / w);
-  const int x = (int)(i % w);
-  const int yx = y | x;
-  const int t = yx == 0 ? levels : min(__ffs(yx) - 1, levels);
-  uint8_t v;
-  if (t >= levels) {
-    v = anchors[b * aplane + (long long)(y >> levels) * aw + (x >> levels)];
-  } else {
-    const int level = levels - 1 - t;
-    const int which = ((y >> t) & 1) * 2 + ((x >> t) & 1) - 1;
-    const long long qw = (long long)aw << level;
-    const long long qplane = aplane << (2 * level);
-    v = qs.q[3 * level + which][b * qplane + (long long)(y >> (t + 1)) * qw +
-                                (x >> (t + 1))];
-  }
-  grid[b * pixels + i] = v;
-}
 
 // -- K2 and K5: coarse levels one launch each, the finest F tiled -------------
 
@@ -905,6 +1180,118 @@ __device__ __forceinline__ uint4 zip8(uint64_t a, uint64_t b) {
   const uint32_t bl = (uint32_t)b, bh = (uint32_t)(b >> 32);
   return make_uint4(__byte_perm(al, bl, 0x5140), __byte_perm(al, bl, 0x7362),
                     __byte_perm(ah, bh, 0x5140), __byte_perm(ah, bh, 0x7362));
+}
+
+// -- K4: the subband layout to the grid, a gather by row class -------------
+
+// The subband layout as K4 reads it: the anchors, then level l's q01, q10,
+// q11 at q[3l .. 3l + 2], a plane of level l being (ah << l) x (aw << l).
+// A __grid_constant__ parameter: a warp reads the entries of its row's
+// class at an index known only at run time straight from the parameter
+// space, with no copy.
+struct SubbandsIn {
+  const uint8_t* anchors;
+  const uint8_t* q[3 * kMaxLevels];
+};
+
+// Pixel (y, x) of plane b in the layout: its level from the lowest set bit
+// t of y | x (t >= levels, or y = x = 0: an anchor), bit t of y and of x
+// picking q01, q10 or q11.
+__device__ __forceinline__ uint32_t layout_byte(const SubbandsIn& in, long long b, int levels,
+                                                int ah, int aw, int y, int x) {
+  const int yx = y | x;
+  const int t = yx == 0 ? levels : min(__ffs(yx) - 1, levels);
+  if (t >= levels) return in.anchors[(b * ah + (y >> levels)) * aw + (x >> levels)];
+  const int level = levels - 1 - t;
+  const int which = ((y >> t) & 1) * 2 + ((x >> t) & 1) - 1;
+  const long long qh = (long long)ah << level, qw = (long long)aw << level;
+  return in.q[3 * level + which][(b * qh + (y >> (t + 1))) * qw + (x >> (t + 1))];
+}
+
+// n (1, 2, 4 or 8) consecutive bytes, little-endian.
+__device__ __forceinline__ uint64_t layout_bytes(const uint8_t* p, int n) {
+  switch (n) {
+    case 8: return quad_bytes<8>(p);
+    case 4: return quad_bytes<4>(p);
+    case 2: return quad_bytes<2>(p);
+    default: return quad_bytes<1>(p);
+  }
+}
+
+// Byte interleave of two runs of n (1, 2 or 4) bytes each.
+__device__ __forceinline__ uint64_t zip_n(uint64_t a, uint64_t b, int n) {
+  if (n == 4) return zip4((uint32_t)a, (uint32_t)b);
+  if (n == 2) return zip2((uint32_t)a, (uint32_t)b);
+  return (a & 255u) | (b & 255u) << 8;
+}
+
+// K4: a thread writes one 16-byte run of one grid row with one store, a
+// warp 512 consecutive bytes of the row, 8 warps a block on 8 rows
+// (grid-strided past 65535 blocks of rows), plane b0 + blockIdx.z.  Row y
+// has class k = the lowest set bit of y, capped at `levels` (y = 0: k =
+// levels), uniform across the warp, and its pixels come from k + 2 quad
+// rows: a run at x0 (a multiple of 16) takes, for each j < K = min(k, 4),
+// the 8 >> j q01 bytes of level levels - 1 - j, row y >> (j + 1), at its
+// columns of lowest set bit j; its columns at multiples of 2^K are the
+// q10 and q11 bytes of level levels - 1 - k, row y >> (k + 1), interleaved
+// (k < levels), the anchors (k = levels <= 4), or column x0 alone, read by
+// itself (K = 4).  The runs are byte interleaves (__byte_perm) from the
+// coarsest up.  A row's ragged end, w % 16 columns, is read byte by byte;
+// every load takes the widest access its address allows, so quads on any
+// byte boundary are read.
+__global__ void __launch_bounds__(kThreads)
+    assemble_rows(const __grid_constant__ SubbandsIn in, uint8_t* __restrict__ grid, int h,
+                  int w, int levels, int ah, int aw, int b0) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x0 = 16 * ((int)blockIdx.x * 32 + lane);
+  if (x0 >= w) return;
+  const long long b = (long long)b0 + blockIdx.z;
+  const int L = levels;
+  for (int y = (int)blockIdx.y * kWarps + warp; y < h; y += (int)gridDim.y * kWarps) {
+    uint8_t* g = grid + (b * h + y) * (long long)w + x0;
+    if (x0 + 16 > w) {
+      for (int j = 0; j < w - x0; ++j) g[j] = (uint8_t)layout_byte(in, b, L, ah, aw, y, x0 + j);
+      continue;
+    }
+    const int k = y == 0 ? L : min(__ffs(y) - 1, L);
+    const int K = min(k, 4);
+    // Every load of the run first, then the interleaves.
+    uint64_t lo, hi = 0, q01[4] = {0, 0, 0, 0};
+    if (K == 4) {
+      lo = layout_byte(in, b, L, ah, aw, y, x0);
+    } else if (k == L) {  // 16 >> K anchors (K = 0: L = 0, the grid is the anchors)
+      const uint8_t* a = in.anchors + (b * ah + (y >> L)) * aw + (x0 >> L);
+      lo = K == 0 ? quad_bytes<8>(a) : layout_bytes(a, 16 >> K);
+      if (K == 0) hi = quad_bytes<8>(a + 8);
+    } else {  // q10 and q11 of level L - 1 - k, 8 >> k bytes each
+      const int level = L - 1 - k;
+      const long long qw = (long long)aw << level;
+      const long long o = (b * ((long long)ah << level) + (y >> (k + 1))) * qw + (x0 >> (k + 1));
+      lo = layout_bytes(in.q[3 * level + 1] + o, 8 >> k);
+      hi = layout_bytes(in.q[3 * level + 2] + o, 8 >> k);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= K) break;
+      const int level = L - 1 - j;
+      const long long qw = (long long)aw << level;
+      const long long o = (b * ((long long)ah << level) + (y >> (j + 1))) * qw + (x0 >> (j + 1));
+      q01[j] = layout_bytes(in.q[3 * level] + o, 8 >> j);
+    }
+    uint4 v;
+    if (K == 0) {
+      v = k < L ? zip8(lo, hi)
+                : make_uint4((uint32_t)lo, (uint32_t)(lo >> 32), (uint32_t)hi, (uint32_t)(hi >> 32));
+    } else {
+      uint64_t e = K < 4 && k < L ? zip_n(lo, hi, 8 >> K) : lo;  // 16 >> K bytes
+      if (K > 3) e = (e & 255u) | (q01[3] & 255u) << 8;
+      if (K > 2) e = zip2((uint32_t)e, (uint32_t)q01[2]);
+      if (K > 1) e = zip4((uint32_t)e, (uint32_t)q01[1]);
+      v = zip8(e, q01[0]);
+    }
+    store_piece(g, v, 16);
+  }
 }
 
 // A run of 16 pixels of row gy from column gx (a multiple of 16), all
@@ -1214,6 +1601,30 @@ cudaError_t encode_lossless_all(const uint8_t* src, uint8_t* grid, int batch, in
   return cudaGetLastError();
 }
 
+// The tiled launch of lossy K1 (OUT kGridOut) or K3 (kQuadsOut) over the
+// batch: the finest f levels in th x tw tiles cut on the hp x wp canvas (the
+// plane, for K1), a block a tile.
+template <int PRED, int OUT>
+cudaError_t encode_tiled(const uint8_t* src, uint8_t* grid, uint8_t* recon,
+                         const TileQuadsOut& quads, const KTable& table, int batch, int h, int w,
+                         int hp, int wp, int levels, int f, bool coarse, int th, int tw,
+                         bool vec, cudaStream_t stream) {
+  const int smem = tile_shared_bytes(th, tw, f);
+  const int tiles_x = (int)cdiv(wp, tw);
+  const long long tiles = cdiv(hp, th) * tiles_x;
+  if (smem > kMaxSharedBytes || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kernel = vec ? encode_tiles<PRED, true, OUT> : encode_tiles<PRED, false, OUT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  return over_batch(batch, [&](int b0, int nb) {
+    kernel<<<dim3((unsigned)tiles, nb), kTileThreads, smem, stream>>>(
+        src, grid, recon, quads, table, h, w, hp, wp, levels, f, coarse, th, tw, tiles_x, b0);
+  });
+}
+
 // K1 lossy: the levels coarser than 2^F one launch each (the first also
 // storing the anchors), then the finest F = min(levels, fine) in one
 // launch of th x tw tiles.
@@ -1234,21 +1645,8 @@ cudaError_t encode_lossy_all(const uint8_t* src, uint8_t* grid, uint8_t* recon,
     });
     if (err != cudaSuccess) return err;
   }
-  const int smem = tile_shared_bytes(th, tw, f);
-  const int tiles_x = (int)cdiv(w, tw);
-  const long long tiles = cdiv(h, th) * tiles_x;
-  if (smem > kMaxSharedBytes || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  auto kernel = vec ? encode_tiles<PRED, true> : encode_tiles<PRED, false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  return over_batch(batch, [&](int b0, int nb) {
-    kernel<<<dim3((unsigned)tiles, nb), kTileThreads, smem, stream>>>(
-        src + b0 * plane, grid + b0 * plane, recon + b0 * plane, table, h, w, f,
-        coarse > 0, th, tw, tiles_x);
-  });
+  return encode_tiled<PRED, kGridOut>(src, grid, recon, TileQuadsOut{}, table, batch, h, w, h, w,
+                                     levels, f, coarse > 0, th, tw, vec, stream);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -1305,29 +1703,62 @@ cudaError_t decode_all(const uint8_t* grid, uint8_t* out, int batch, int h, int 
                                    coarse > 0, th, tw, vec, stream);
 }
 
-// K3's level loop.  Level l's canvas lattice has (ah << l) x (aw << l)
-// cells of side 2^(levels-l).
-template <int PRED, bool LOSSLESS>
-cudaError_t encode_sub_levels(const uint8_t* src, uint8_t* const* quads,
-                              uint8_t* recon, const KTable& table, int batch, int h,
-                              int w, int levels, int ah, int aw,
-                              cudaStream_t stream) {
+// K3 lossless: one launch (encode_sub_lossless), a thread a 16-byte run of
+// the canvas, a warp 32 runs of one row, 8 rows a block.
+template <int PRED>
+cudaError_t encode_sub_lossless_all(const uint8_t* src, uint8_t* anchors, uint8_t* const* quads,
+                                    int batch, int h, int w, int levels, int hp, int wp,
+                                    cudaStream_t stream) {
+  SubbandsOut out = {};
+  out.anchors = anchors;
+  for (int i = 0; i < 3 * levels; ++i) out.q[i] = quads[i];
+  const long long rows = cdiv(hp, kThreads / 32);
+  const dim3 blocks((unsigned)cdiv(cdiv(wp, kRun), 32),
+                    (unsigned)(rows < kMaxGridY ? rows : kMaxGridY));
+  const bool vec = w % 16 == 0 && aligned16(src);
+  return over_batch(batch, [&](int b0, int nb) {
+    if (vec)
+      encode_sub_lossless<PRED, true><<<dim3(blocks.x, blocks.y, nb), kThreads, 0, stream>>>(
+          src, out, h, w, levels, hp, wp, b0);
+    else
+      encode_sub_lossless<PRED, false><<<dim3(blocks.x, blocks.y, nb), kThreads, 0, stream>>>(
+          src, out, h, w, levels, hp, wp, b0);
+  });
+}
+
+// K3 lossy: the levels coarser than 2^F one launch each (the first also
+// storing the anchors), then the finest F = min(levels, fine) in one
+// launch of th x tw tiles cut on the canvas, which store the anchors when
+// no coarser level ran.  recon may be null when no coarser level runs:
+// the tiles then write none.
+template <int PRED>
+cudaError_t encode_sub_lossy_all(const uint8_t* src, uint8_t* anchors, uint8_t* const* quads,
+                                 uint8_t* recon, const KTable& table, int batch, int h, int w,
+                                 int levels, int ah, int aw, int th, int tw, int fine, bool vec,
+                                 cudaStream_t stream) {
   const long long plane = (long long)h * w;
-  for (int level = 0; level < levels; ++level) {
+  const int f = levels < fine ? levels : fine;
+  const int coarse = levels - f;
+  if (coarse > 0 && recon == nullptr) return cudaErrorInvalidValue;
+  for (int level = 0; level < coarse; ++level) {
     const int step = 1 << (levels - level);
     const int qw = aw << level;
     const long long cells = ((long long)ah << level) * qw;
     uint8_t* const* q = quads + 3 * level;
     const cudaError_t err = over_batch(batch, [&](int b0, int nb) {
       const long long qo = b0 * cells;
-      encode_sub_level<PRED, LOSSLESS>
-          <<<dim3(blocks_for(cells), nb), kThreads, 0, stream>>>(
-              src + b0 * plane, LOSSLESS ? nullptr : recon + b0 * plane,
-              q[0] + qo, q[1] + qo, q[2] + qo, table, h, w, step, qw, cells);
+      encode_sub_level<PRED><<<dim3(blocks_for(cells), nb), kThreads, 0, stream>>>(
+          src + b0 * plane, recon + b0 * plane, level == 0 ? anchors + qo : nullptr, q[0] + qo,
+          q[1] + qo, q[2] + qo, table, h, w, step, qw, cells);
     });
     if (err != cudaSuccess) return err;
   }
-  return cudaSuccess;
+  TileQuadsOut out = {};
+  for (int t = 0; t < f; ++t)
+    for (int which = 0; which < 3; ++which) out.q[t][which] = quads[3 * (levels - t - 1) + which];
+  out.anchors = coarse > 0 ? nullptr : anchors;
+  return encode_tiled<PRED, kQuadsOut>(src, nullptr, recon, out, table, batch, h, w, ah << levels,
+                                       aw << levels, levels, f, coarse > 0, th, tw, vec, stream);
 }
 
 // K5 on an h x w output (the preview's dims when upto is below the
@@ -1425,14 +1856,17 @@ int hgi_decode(const void* grid, void* out, int batch, int h, int w, int levels,
   return cudaGetLastError();
 }
 
-// K3: src and recon are [batch, h, w] uint8 device buffers (recon only
-// when `lossy`, which also reads `table`, by value); anchors is [batch,
-// ceil(h/2^L), ceil(w/2^L)] and quads a host array of 3*levels device
-// pointers, level l's q01, q10, q11 each [batch, ceil(h/2^L) << l,
-// ceil(w/2^L) << l].  `levels` is the effective depth.
-int hgi_encode_subbands(const void* src, void* anchors, void* const* quads,
-                        void* recon, QTable table, int lossy, int batch, int h,
-                        int w, int levels, int predictor, void* stream) {
+// K3: src (and recon, when not null) are [batch, h, w] uint8 device
+// buffers; anchors is [batch, ceil(h/2^L), ceil(w/2^L)] and quads a host
+// array of 3*levels device pointers, level l's q01, q10, q11 each [batch,
+// ceil(h/2^L) << l, ceil(w/2^L) << l].  `levels` is the effective depth.
+// Lossless (`lossy` 0) is one launch and never writes recon, which is the
+// source.  Lossy reads `table`, by value, and tiles its finest min(levels,
+// fine) levels in th x tw tiles (hgi_encode's rules); recon may be null
+// only when levels <= fine, and no recon is written then.
+int hgi_encode_subbands(const void* src, void* anchors, void* const* quads, void* recon,
+                        QTable table, int lossy, int batch, int h, int w, int levels,
+                        int predictor, int th, int tw, int fine, void* stream) {
   const auto* s = static_cast<const uint8_t*>(src);
   auto* a = static_cast<uint8_t*>(anchors);
   auto* const* q = reinterpret_cast<uint8_t* const*>(quads);
@@ -1440,50 +1874,50 @@ int hgi_encode_subbands(const void* src, void* anchors, void* const* quads,
   auto st = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || h <= 0 || w <= 0) return cudaSuccess;
   if ((predictor != kCrossed && predictor != kLeftTop) || levels < 0 ||
-      levels >= kMaxLevels)
+      levels >= kMaxLevels || bad_tiling(th, tw, fine))
     return cudaErrorInvalidValue;
-  const bool lossless = !lossy;
-  const long long plane = (long long)h * w;
-  const Lattice alat(h, w, 1 << levels);
-  cudaError_t err = over_batch(batch, [&](int b0, int nb) {
-    pack_anchors<<<dim3(alat.blocks(), nb), kThreads, 0, st>>>(
-        s + b0 * plane, a + b0 * alat.cells,
-        lossless ? nullptr : r + b0 * plane, h, w, 1 << levels, alat.wc,
-        alat.cells);
-  });
-  if (err != cudaSuccess) return err;
   const int ah = (int)cdiv(h, 1LL << levels);
-  const int aw = alat.wc;
-  const KTable kt = ktable(table);
-  if (predictor == kCrossed)
-    err = lossless ? encode_sub_levels<kCrossed, true>(s, q, r, kt, batch, h, w, levels, ah, aw, st)
-                   : encode_sub_levels<kCrossed, false>(s, q, r, kt, batch, h, w, levels, ah, aw, st);
-  else
-    err = lossless ? encode_sub_levels<kLeftTop, true>(s, q, r, kt, batch, h, w, levels, ah, aw, st)
-                   : encode_sub_levels<kLeftTop, false>(s, q, r, kt, batch, h, w, levels, ah, aw, st);
+  const int aw = (int)cdiv(w, 1LL << levels);
+  if (((long long)ah << levels) > 0x7fffffffLL || ((long long)aw << levels) > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (!lossy) {
+    err = predictor == kCrossed
+              ? encode_sub_lossless_all<kCrossed>(s, a, q, batch, h, w, levels, ah << levels,
+                                                  aw << levels, st)
+              : encode_sub_lossless_all<kLeftTop>(s, a, q, batch, h, w, levels, ah << levels,
+                                                  aw << levels, st);
+  } else {
+    const bool vec = w % 16 == 0 && aligned16(s) && (r == nullptr || aligned16(r));
+    err = predictor == kCrossed
+              ? encode_sub_lossy_all<kCrossed>(s, a, q, r, ktable(table), batch, h, w, levels,
+                                               ah, aw, th, tw, fine, vec, st)
+              : encode_sub_lossy_all<kLeftTop>(s, a, q, r, ktable(table), batch, h, w, levels,
+                                               ah, aw, th, tw, fine, vec, st);
+  }
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // K4: anchors and quads as K3 writes them (`levels` = the number of
-// levels given); grid is [batch, h, w].
-int hgi_assemble_grid(const void* anchors, const void* const* quads,
-                      void* grid, int batch, int h, int w, int levels,
-                      void* stream) {
-  const auto* a = static_cast<const uint8_t*>(anchors);
+// levels given), on any byte boundary; grid is [batch, h, w].  One launch.
+int hgi_assemble_grid(const void* anchors, const void* const* quads, void* grid, int batch,
+                      int h, int w, int levels, void* stream) {
   auto* g = static_cast<uint8_t*>(grid);
   auto st = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || h <= 0 || w <= 0) return cudaSuccess;
   if (levels < 0 || levels >= kMaxLevels) return cudaErrorInvalidValue;
-  Quads qs = {};
-  for (int i = 0; i < 3 * levels; ++i)
-    qs.q[i] = static_cast<const uint8_t*>(quads[i]);
-  const long long pixels = (long long)h * w;
+  SubbandsIn in = {};
+  in.anchors = static_cast<const uint8_t*>(anchors);
+  for (int i = 0; i < 3 * levels; ++i) in.q[i] = static_cast<const uint8_t*>(quads[i]);
+  const int ah = (int)cdiv(h, 1LL << levels);
   const int aw = (int)cdiv(w, 1LL << levels);
-  const long long aplane = cdiv(h, 1LL << levels) * aw;
+  const long long chunks = cdiv(cdiv(w, 16), 32);  // 32 runs of 16 bytes, a warp's
+  const long long rows = cdiv(h, kThreads / 32);
+  const dim3 blocks((unsigned)chunks, (unsigned)(rows < kMaxGridY ? rows : kMaxGridY));
   const cudaError_t err = over_batch(batch, [&](int b0, int nb) {
-    assemble_pixels<<<dim3(blocks_for(pixels), nb), kThreads, 0, st>>>(
-        a, qs, g, h, w, levels, aw, aplane, pixels, b0);
+    assemble_rows<<<dim3(blocks.x, blocks.y, nb), kThreads, 0, st>>>(in, g, h, w, levels, ah,
+                                                                     aw, b0);
   });
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

@@ -136,9 +136,7 @@ def load() -> ctypes.CDLL:
         lib.hgi_decode.argtypes = [ptr, ptr] + [i32] * 8 + [ptr]
         lib.hgi_decode.restype = i32
         ptrs = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
-        lib.hgi_encode_subbands.argtypes = [
-            ptr, ptr, ptrs, ptr, QTable, i32, i32, i32, i32, i32, i32, ptr,
-        ]
+        lib.hgi_encode_subbands.argtypes = [ptr, ptr, ptrs, ptr, QTable] + [i32] * 9 + [ptr]
         lib.hgi_encode_subbands.restype = i32
         lib.hgi_assemble_grid.argtypes = [ptr, ptrs, ptr, i32, i32, i32, i32, ptr]
         lib.hgi_assemble_grid.restype = i32

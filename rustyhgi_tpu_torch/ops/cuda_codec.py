@@ -40,7 +40,15 @@ tensor lives unchanged, so a codec's calls do no host work for it.
 
 K1's lossy path tiles its finest ``min(L, FINE_LEVELS)`` levels in
 ``TILE`` tiles in one launch, and launches once more per coarser level;
-its lossless path is one launch at any depth.  K2 and K5 tile their
+its lossless path is one launch at any depth.  K3 is K1 writing quads,
+in the same two designs: its lossy tiles (the same ``TILE`` and
+``FINE_LEVELS``; :func:`encode_subbands_tiled` takes others) are cut on
+the canvas, and its lossless path is one launch at any depth.  K3 writes
+the anchors and every quad into one buffer, each a contiguous view at a
+16-byte aligned offset kept per plane shape, depth and batch, so a call
+allocates one tensor (two with a recon).  K4 is one launch, a gather by
+row class.  K4 and K5 take quads on any byte boundary, separately
+allocated or views of one buffer.  K2 and K5 tile their
 finest ``min(L, DECODE_FINE_LEVELS)`` levels (K5's preview:
 ``min(upto, DECODE_FINE_LEVELS)``) the same way, in tiles of
 :func:`decode_tile`'s size, so they too are one launch at
@@ -71,6 +79,7 @@ __all__ = [
     "decode_plane",
     "decode_plane_tiled",
     "encode_subbands",
+    "encode_subbands_tiled",
     "assemble_grid",
     "decode_subbands",
     "decode_preview",
@@ -285,6 +294,9 @@ def decode_plane_tiled(
 # -- subband layout (K3, K4, K5) ----------------------------------------------
 
 
+_VOID_PP = ctypes.POINTER(ctypes.c_void_p)
+
+
 def _ptrs(tensors) -> ctypes.Array:
     """A host array of the tensors' device pointers."""
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
@@ -345,6 +357,41 @@ def _quad_fault(subbands, q_shapes, device) -> None:
     raise ValueError("the subband layout does not match its shapes")
 
 
+_buffers = {}  # (h, w, levels, lead) -> _SubbandBuffer
+
+
+class _SubbandBuffer:
+    """Where K3's outputs lie in the one buffer it writes: the anchors and
+    then each level's q01, q10, q11, each a contiguous ``shape`` at a
+    16-byte aligned ``offset``; ``quad_offsets`` are the quads' as uint64,
+    to which the buffer's address is added for the kernel's pointers."""
+
+    __slots__ = ("size", "views", "quad_offsets")
+
+    def __init__(self, h: int, w: int, levels: int, lead: tuple):
+        a_shape, q_shapes = canvas_shapes(h, w, levels)
+        shapes = [lead + a_shape] + [lead + s for s in q_shapes for _ in range(3)]
+        views, size = [], 0
+        for shape in shapes:
+            # A contiguous tensor's strides: the product of the dims after each.
+            strides = tuple(int(np.prod(shape[i + 1 :])) for i in range(len(shape)))
+            views.append((shape, strides, size))
+            size += -(-int(np.prod(shape)) // 16) * 16
+        self.size = size
+        self.views = tuple(views)
+        self.quad_offsets = np.array([off for _, _, off in views[1:]], np.uint64)
+
+
+def _subband_buffer(h: int, w: int, levels: int, lead: tuple) -> _SubbandBuffer:
+    key = (h, w, levels, lead)
+    hit = _buffers.get(key)
+    if hit is None:
+        if len(_buffers) >= 256:
+            _buffers.clear()
+        hit = _buffers[key] = _SubbandBuffer(h, w, levels, lead)
+    return hit
+
+
 def encode_subbands(
     image: torch.Tensor,
     levels: int,
@@ -355,29 +402,53 @@ def encode_subbands(
     """K3: uint8 ``[H, W]``/``[B, H, W]`` -> ``(anchors, subbands, recon)``.
 
     Same contract as :func:`.pyramid.encode_subbands`, padding residuals
-    included.
+    included.  The anchors and every quad are contiguous views of one
+    buffer, each on a 16-byte boundary.
     """
+    return encode_subbands_tiled(image, levels, table, predictor, want_recon)
+
+
+def encode_subbands_tiled(
+    image: torch.Tensor,
+    levels: int,
+    table: Optional[torch.Tensor] = None,
+    predictor: str = "crossed",
+    want_recon: bool = True,
+    tile: Tuple[int, int] = TILE,
+    fine: int = FINE_LEVELS,
+):
+    """:func:`encode_subbands` with the lossy path's tiling given, under
+    the rules of :func:`encode_plane_tiled`; the output does not depend on
+    it.  With ``want_recon`` False no recon is written where no coarser
+    level reads it: always when lossless, and at ``L <= fine``."""
     global encode_subbands_launches
     predictor = check_predictor(predictor)
     if image.device.type == "cpu":
         return pyramid.encode_subbands(image, levels, table, predictor, want_recon)
+    th, tw = _check_tiling(tile, fine)
     b, h, w = _check_cuda(image, "image")
     lv = effective_levels(levels, h, w)
-    lead = tuple(image.shape[:-2])
-    a_shape, q_shapes = canvas_shapes(h, w, lv)
-    anchors = image.new_empty(lead + a_shape)
-    subbands = [tuple(image.new_empty(lead + s) for _ in range(3)) for s in q_shapes]
+    layout = _subband_buffer(h, w, lv, tuple(image.shape[:-2]))
+    buf = torch.empty(layout.size, dtype=torch.uint8, device=image.device)
+    anchors, *quads = [buf.as_strided(shape, strides, off) for shape, strides, off in layout.views]
+    subbands = [tuple(quads[i : i + 3]) for i in range(0, len(quads), 3)]
     tab = None if table is None else table_arg(table)
-    recon = image if tab is None else torch.empty_like(image)
+    if tab is None:
+        recon = image
+    elif want_recon or lv > fine:
+        recon = torch.empty_like(image)
+    else:
+        recon = None
     if image.numel():
         lib = _build.load()
+        ptrs = layout.quad_offsets + np.uint64(buf.data_ptr())
         with _on(image.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.hgi_encode_subbands(
-                image.data_ptr(), anchors.data_ptr(),
-                _ptrs([q for quads in subbands for q in quads]),
-                None if tab is None else recon.data_ptr(), _NO_TABLE if tab is None else tab,
-                tab is not None, b, h, w, lv, PREDICTORS[predictor], stream,
+                image.data_ptr(), anchors.data_ptr(), ptrs.ctypes.data_as(_VOID_PP),
+                None if tab is None or recon is None else recon.data_ptr(),
+                _NO_TABLE if tab is None else tab,
+                tab is not None, b, h, w, lv, PREDICTORS[predictor], th, tw, fine, stream,
             )
         encode_subbands_launches += 1
         _raise_on(lib, rc, "hgi_encode_subbands")

@@ -3,9 +3,10 @@
 Counterpart of the JAX repo's ``tools/chip_probe.py``.  Two subcommands
 are ported: ``vpucal``, the op-rate calibration probe (``cmd_vpucal``), on
 the probe kernel K8 (:mod:`..ops.vpucal`, ``csrc/hgi_probe.cu``), and
-``sweep`` (``cmd_sweep``), which times lossy K1's tile and fine depth, the
-same for the decodes K2 and K5 (fine 0: a launch a level; K5's previews;
-the tile at more plane counts and sizes), and X1's lanes a block, where the JAX probe swept its Pallas kernel's row tiles::
+``sweep`` (``cmd_sweep``), which times lossy K1's and K3's tile and fine
+depth, the same for the decodes K2 and K5 (fine 0: a launch a level; K5's
+previews; the tile at more plane counts and sizes), and X1's lanes a
+block, where the JAX probe swept its Pallas kernel's row tiles::
 
     python -m rustyhgi_tpu_torch.tools.chip_probe vpucal [names]
     python -m rustyhgi_tpu_torch.tools.chip_probe sweep
@@ -426,19 +427,25 @@ def _decode_rows(rows, img, levels, table, device_ms, smi, fines, tiles, uptos=(
                       f"[{smi}]", flush=True)
 
 
+def _same_layout(got, want) -> bool:
+    """Whether two subband encodes give the same anchors, quads and recon."""
+    return (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+            and all(torch.equal(a, b) for qa, qb in zip(got[1], want[1]) for a, b in zip(qa, qb)))
+
+
 def cmd_sweep() -> Dict[str, dict]:
-    """Lossy K1's tile and fine depth, K2's and K5's (with K5's previews
+    """Lossy K1's and K3's tile and fine depth, K2's and K5's (with K5's previews
     and more plane counts and sizes for the decodes' tile), and X1's lanes
     a block, by device time (``torch.profiler``, the mean of
     ``bench.REPEATS`` calls), on smooth planes at medium; every choice's
     output is checked equal to the default's or the plain version's.
     Prints a row a line, then one JSON object ``{"sweep": {...},
-    "launches": {...}}``, the latter the wrapper calls of K1, K2, K5 and
-    X1 the sweep made."""
+    "launches": {...}}``, the latter the wrapper calls of K1, K2, K3, K5
+    and X1 the sweep made."""
     if not torch.cuda.is_available():
         raise RuntimeError("sweep needs a CUDA card: torch.cuda.is_available() is false")
     from .. import bench
-    from ..ops import cuda_codec, tpurans
+    from ..ops import cuda_codec, pyramid, tpurans
     from ..ops.quantizers import QuantizationLevel, quantize_fn
 
     smi = card()
@@ -448,11 +455,12 @@ def cmd_sweep() -> Dict[str, dict]:
     def device_ms(fn):
         return sum(bench.device_trace(fn, "cuda").values()) * 1e3 or None
 
-    rows = {"k1": {}, "k2": {}, "k5": {}, "x1": {}}
+    rows = {"k1": {}, "k3": {}, "k2": {}, "k5": {}, "x1": {}}
     counters = {"K1": (cuda_codec, "encode_launches"), "K2": (cuda_codec, "decode_launches"),
+                "K3": (cuda_codec, "encode_subbands_launches"),
                 "K5": (cuda_codec, "decode_subbands_launches"), "X1": (tpurans, "rans_launches")}
     before = {k: getattr(m, a) for k, (m, a) in counters.items()}
-    print(f"device: {torch.cuda.get_device_name(0)} | K1, K2, K5 medium (crossed) and X1 on "
+    print(f"device: {torch.cuda.get_device_name(0)} | K1, K3, K2, K5 medium (crossed) and X1 on "
           f"smooth planes; device ms, torch.profiler mean | default tile {cuda_codec.TILE}, "
           f"fine {cuda_codec.FINE_LEVELS}, decode tiles {cuda_codec.DECODE_TILES}, fine "
           f"{cuda_codec.DECODE_FINE_LEVELS}, lane block {tpurans.LANE_BLOCK}", flush=True)
@@ -469,6 +477,7 @@ def cmd_sweep() -> Dict[str, dict]:
                 _decode_rows(rows, img, levels, table, device_ms, smi, SWEEP_DECODE_FINE,
                              SWEEP_TILES)
             want = cuda_codec.encode_plane(img, levels, table)
+            want_sub = pyramid.encode_subbands(img, levels, table)
             for fine in SWEEP_FINE:
                 if fine > min(SWEEP_FINE) and fine > levels:
                     continue  # F = min(L, fine): the same launch as fine 4
@@ -480,10 +489,16 @@ def cmd_sweep() -> Dict[str, dict]:
                     got = run()
                     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
                         raise RuntimeError(f"K1 tile {tile} fine {fine} differs at {shape} L{levels}")
-                    ms = device_ms(run)
                     key = f"{'x'.join(map(str, shape))} L{levels} fine {fine} tile {tile[0]}x{tile[1]}"
-                    rows["k1"][key] = ms
+                    rows["k1"][key] = ms = device_ms(run)
                     print(f"sweep K1 {key}: device {ms if ms is None else f'{ms:.4f}'} ms [{smi}]",
+                          flush=True)
+                    run = lambda: cuda_codec.encode_subbands_tiled(img, levels, table, "crossed",
+                                                                   True, tile, fine)
+                    if not _same_layout(run(), want_sub):
+                        raise RuntimeError(f"K3 tile {tile} fine {fine} differs at {shape} L{levels}")
+                    rows["k3"][key] = ms = device_ms(run)
+                    print(f"sweep K3 {key}: device {ms if ms is None else f'{ms:.4f}'} ms [{smi}]",
                           flush=True)
     grid = cuda_codec.encode_plane(torch.from_numpy(_plane(rng, (1, 1080, 1920))).to("cuda"),
                                    4, table)[0].reshape(1, -1)
@@ -518,8 +533,8 @@ def main(argv=None) -> int:
     p = sub.add_parser("vpucal", help="op-rate calibration on the probe kernel K8")
     p.add_argument("names", nargs="?", default=None,
                    help=f"comma-separated rows, of {','.join(ROWS)} (default all)")
-    sub.add_parser("sweep", help="the tile and fine depth of lossy K1, K2 and K5, X1's lanes "
-                                 "a block")
+    sub.add_parser("sweep", help="the tile and fine depth of lossy K1, K3, K2 and K5, X1's "
+                                 "lanes a block")
     args = parser.parse_args(argv)
     if args.command == "sweep":
         cmd_sweep()

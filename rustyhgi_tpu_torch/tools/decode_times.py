@@ -1,4 +1,4 @@
-"""K2 and K5 of one checkout, timed on the card in a process of their own.
+"""K1-K5 of one checkout, timed on the card in a process of their own.
 
     python rustyhgi_tpu_torch/tools/decode_times.py [--root DIR] [--json PATH]
 
@@ -6,10 +6,14 @@
 ``rustyhgi_tpu_torch`` is imported and timed, so that two versions of
 the port compare in one call on one card: unpack the other into a
 directory and run parent, change, change, parent.  Only entry points that
-every version of the port has are called: K2 ``cuda_codec.decode_plane``,
-K5 ``decode_subbands`` and K5's preview ``decode_preview`` at ``upto`` 2,
-on smooth 1080x1920 planes (waves plus sigma-6 noise from a seeded numpy
-generator) at L4, one plane and eight, lossless and medium.
+every version of the port has are called: K1 ``cuda_codec.encode_plane``
+(for reference: K3 codes the same residuals), K2 ``decode_plane``, K3
+``encode_subbands`` (with recon and without, as the bench calls it), K4
+``assemble_grid``, K5 ``decode_subbands`` and K5's preview
+``decode_preview`` at ``upto`` 2, on smooth 1080x1920 planes (waves plus
+sigma-6 noise from a seeded numpy generator) at L4, one plane and eight,
+lossless and medium; each output is checked against the plain version's
+or the recon.
 
 For each row: the median and range of ``2 * REPEATS`` CUDA-event-timed
 calls with the L2 cache flushed (the wrapper's whole window,
@@ -79,7 +83,7 @@ def measure() -> dict:
     import numpy as np
     import torch
 
-    from rustyhgi_tpu_torch.ops import cuda_codec
+    from rustyhgi_tpu_torch.ops import cuda_codec, pyramid
     from rustyhgi_tpu_torch.ops.quantizers import QuantizationLevel, quantize_fn
     from rustyhgi_tpu_torch.utils.benchsuite import device_samples
 
@@ -98,13 +102,28 @@ def measure() -> dict:
             table = None if q.identity else q.table
             grid, recon = cuda_codec.encode_plane(img, 4, table)
             anchors, subbands, _ = cuda_codec.encode_subbands(img, 4, table)
+            layout = pyramid.encode_subbands(img, 4, table)
+            flat = [layout[0], *(q for quads in layout[1] for q in quads)]
+
+            def same_layout(got, with_recon):
+                parts = [got[0], *(q for quads in got[1] for q in quads)]
+                return (len(parts) == len(flat) and all(map(torch.equal, parts, flat))
+                        and (torch.equal(got[2], recon) if with_recon else got[2] is None))
+
             for name, fn, want in (
+                ("K1", lambda: cuda_codec.encode_plane(img, 4, table),
+                 lambda got: torch.equal(got[0], grid) and torch.equal(got[1], recon)),
+                ("K3", lambda: cuda_codec.encode_subbands(img, 4, table),
+                 lambda got: same_layout(got, True)),
+                ("K3 no recon", lambda: cuda_codec.encode_subbands(img, 4, table, want_recon=False),
+                 lambda got: same_layout(got, False)),
+                ("K4", lambda: cuda_codec.assemble_grid(anchors, subbands, hw), grid),
                 ("K2", lambda: cuda_codec.decode_plane(grid, 4), recon),
                 ("K5", lambda: cuda_codec.decode_subbands(anchors, subbands, hw, 4), recon),
                 ("K5 preview 2", lambda: cuda_codec.decode_preview(anchors, subbands[:2], hw, 4, 2),
                  recon[..., ::4, ::4]),
             ):
-                if not torch.equal(fn(), want):
+                if not (want(fn()) if callable(want) else torch.equal(fn(), want)):
                     raise RuntimeError(f"{name} at {shape} {preset.name} differs from the recon")
                 dev, launches = device_trace(fn)
                 ev = [t * 1e3 for t in device_samples(fn, 2 * REPEATS, "cuda")]

@@ -191,3 +191,18 @@ def test_decode_times_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA card"):
         decode_times.main([])
+
+
+def test_sweep_compares_whole_subband_layouts():
+    """The sweep's check of a K3 tiling: anchors, every quad and the recon."""
+    from rustyhgi_tpu_torch.ops import pyramid
+    from rustyhgi_tpu_torch.ops.quantizers import QuantizationLevel, quantize_fn
+
+    img = torch.arange(2 * 40 * 56, dtype=torch.int64).reshape(2, 40, 56).mul(37).remainder(251)
+    img = img.to(torch.uint8)
+    table = quantize_fn(QuantizationLevel.MEDIUM).table
+    want = pyramid.encode_subbands(img, 3, table)
+    got = pyramid.encode_subbands(img.clone(), 3, table)
+    assert chip_probe._same_layout(got, want)
+    got[1][2][1][1, 0, 0] ^= 1
+    assert not chip_probe._same_layout(got, want)

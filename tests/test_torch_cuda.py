@@ -306,6 +306,87 @@ def test_subband_wrappers_reject_a_wrong_layout(cuda):
         cuda_codec.decode_subbands(anchors.int(), subbands, (16, 24), 3)
 
 
+SUBBAND_SHAPES = [(3, 300, 517), (2614, 2368), (129, 65), (1081, 1921), (70, 133), (130, 68),
+                  (17, 200), (1, 7), (33, 1)]
+
+
+@pytest.mark.parametrize("shape", SUBBAND_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("preset", [QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM],
+                         ids=["lossless", "medium"])
+@pytest.mark.parametrize("pred", ["crossed", "left_top"])
+def test_subband_encode_and_assembly_over_many_ragged_tiles(cuda, shape, preset, pred):
+    """K3's one lossless launch and its lossy tiles cut on the canvas, at
+    every split of the depth between coarse launches and tiled levels,
+    with and without recon; K4's row classes on whole and ragged runs."""
+    img = torch.from_numpy(_image(shape)).to(cuda)
+    hw = img.shape[-2:]
+    table = _table(preset)
+    for levels in range(0, 9):
+        anchors, subbands, recon = cuda_codec.encode_subbands(img, levels, table, pred)
+        want_a, want_s, want_r = pyramid.encode_subbands(img, levels, table, pred)
+        _assert_layouts_equal((anchors, subbands), (want_a, want_s))
+        assert torch.equal(recon, want_r), levels
+        _, no_recon_s, no_recon = cuda_codec.encode_subbands(img, levels, table, pred, False)
+        assert no_recon is None
+        _assert_layouts_equal((anchors, no_recon_s), (want_a, want_s))
+        grid = cuda_codec.assemble_grid(anchors, subbands, hw)
+        assert torch.equal(grid, pyramid.assemble_grid(want_a, want_s, hw)), levels
+        assert torch.equal(grid, cuda_codec.encode_plane(img, levels, table, pred)[0]), levels
+
+
+@pytest.mark.parametrize("tile,fine", [((16, 16), 4), ((32, 32), 5), ((128, 128), 5),
+                                       ((16, 48), 2), ((64, 128), 0), ((32, 64), 3)])
+def test_subband_encode_tiling_does_not_change_the_output(cuda, tile, fine):
+    img = torch.from_numpy(_image((2, 150, 333))).to(cuda)
+    table = _table(QuantizationLevel.HIGH)
+    for levels in (0, 2, 5, 8):
+        want_a, want_s, want_r = pyramid.encode_subbands(img, levels, table, "crossed")
+        for want_recon in (True, False):
+            a, s, r = cuda_codec.encode_subbands_tiled(img, levels, table, "crossed", want_recon,
+                                                       tile, fine)
+            _assert_layouts_equal((a, s), (want_a, want_s))
+            assert (r is None) != want_recon
+            if want_recon:
+                assert torch.equal(r, want_r), (levels, tile, fine)
+
+
+def test_subband_encode_writes_one_aligned_buffer(cuda):
+    """The anchors and every quad are contiguous views of one buffer, each
+    on a 16-byte boundary, in the canvas shapes."""
+    img = torch.from_numpy(_image((2, 135, 241))).to(cuda)
+    anchors, subbands, _ = cuda_codec.encode_subbands(img, 4)
+    tensors = [anchors] + [q for quads in subbands for q in quads]
+    base = anchors.untyped_storage().data_ptr()
+    for t in tensors:
+        assert t.is_contiguous() and t.data_ptr() % 16 == 0
+        assert t.untyped_storage().data_ptr() == base
+    assert [tuple(t.shape) for t in tensors] == (
+        [(2, 9, 16)] + [(2, 9 << lv, 16 << lv) for lv in range(4) for _ in range(3)])
+
+
+@pytest.mark.parametrize("shape,levels", [((3, 64, 96), 5), ((2, 70, 133), 4), ((1, 7), 0),
+                                          ((2, 1081, 1921), 6)])
+def test_assembly_on_unaligned_quads(cuda, shape, levels):
+    """Quads one byte into buffers of their own, as a reader may hand
+    them over: K4 and K5 take their byte paths."""
+    img = torch.from_numpy(_image(shape)).to(cuda)
+    hw = img.shape[-2:]
+    grid, recon = cuda_codec.encode_plane(img, levels)
+    anchors, subbands, _ = cuda_codec.encode_subbands(img, levels)
+
+    def shifted(t, by):
+        buf = torch.empty(by + t.numel(), dtype=torch.uint8, device=cuda)
+        v = buf[by:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    for by in (1, 3, 8):
+        moved_a = shifted(anchors, by)
+        moved = [tuple(shifted(q, by) for q in quads) for quads in subbands]
+        assert torch.equal(cuda_codec.assemble_grid(moved_a, moved, hw), grid), by
+        assert torch.equal(cuda_codec.decode_subbands(moved_a, moved, hw, levels), recon), by
+
+
 @pytest.mark.parametrize("preset", ["lossless", "medium"])
 def test_codec_subband_backends_agree(cuda, preset):
     img = _image((135, 240))
