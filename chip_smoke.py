@@ -23,9 +23,10 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    constant plane with one odd byte (frequencies 1 and 16383, the
    reciprocal's extremes), the residual grids of 1x and 8x1080x1920,
    2614x2368 and 4096x4096 (the largest plane X1 takes) and a batch of
-   32 planes; then the op-rate probe's kernel
-   (K8) over its five chains, k of 0 to 200 rounds, ragged shapes, an
-   unaligned buffer and 8x1080x1920 at k = 200;
+   32 planes; then K1, K2 and X1 at the color and tiled paths' shapes
+   ([3, 1080, 1920], [32, 512, 512], [256, 512, 512]); then the op-rate
+   probe's kernel (K8) over its five chains, k of 0 to 200 rounds,
+   ragged shapes, an unaligned buffer and 8x1080x1920 at k = 200;
 3. reproduce the JAX package's committed bytes with no JAX: the LENA
    plane recovered from its lossless golden, its grids and its ``.hgi``,
    ``.thgi`` and fast ``.thgi`` digests (the ``.thgi`` ones need the
@@ -49,7 +50,26 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    beside the payload bytes, the framing, and the host race of
    ``write_thgi`` on the same grid) are timed in calls of their own,
    before the counted run;
-7. drive the bench tier through its entry points, each run with the
+7. drive color through the CLI at 1080x1920 (a seeded scene in three
+   correlated channels): ``encode --color --format thgi`` at lossless
+   (two K1 calls, one a transform of the race) and medium (one), then
+   ``decode`` (one K2 call for the three planes) and ``decode --preview
+   2`` (K5 a plane), exact RGB at lossless and within 20 a channel at
+   medium, the preview equal to the full decode sampled every 4; the
+   ``.thgic`` bytes of a 256x384 crop equal to ``--device cpu``'s; the
+   host-clock stages (load, device encode, the race, decode) printed;
+8. drive the tiled tier through the CLI: ``encode-tiled --format thgi
+   --fast --tile 512`` then ``decode-tiled`` on an 8192x8192 plane (256
+   tiles, 8 calls of K1 and X1 on 32 tiles each, one K2 call on all),
+   bit-exact at lossless and within 20 at medium; ``--format hgi`` and
+   ``--shared-table`` at lossless on 2048x2048 (one K1 call each), each
+   file cut halfway into a block and ``--resume``d back to the same
+   bytes; a 1024x1024 plane at ``--tile 256`` with the same bytes on
+   ``--device cuda`` and ``cpu``; no leg may print the encoder's retry.
+   Each of the phases 4-8 runs with the launch counts set to 0 just
+   before it and read just after, and fails unless it launched its
+   kernels;
+9. drive the bench tier through its entry points, each run with the
    launch counts set to 0 just before it and read just after: the probe
    ``python -m rustyhgi_tpu_torch.tools.chip_probe vpucal`` (K8; its
    rates, and the SASS instructions each chain issues a round), the
@@ -58,7 +78,7 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    are printed.  The bench runs its host-coder group (DEFLATE-9 included)
    on the whole batch: on an H100 the whole bench takes about 15 s, well
    short of doubling this script's time;
-8. time each kernel and its plain version with CUDA events, and read
+10. time each kernel and its plain version with CUDA events, and read
    the kernel's device time alone, and the device kernels one call
    launches, with ``torch.profiler`` (lossless K1 must be one launch at
    depths 4 and 8, lossy K1 one at depth 4, K2 and K5 one at depth 4 and
@@ -77,7 +97,7 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    higher.  X1 also has a chain bound: its rows T times the dependent
    chain of its lanes loop, in SASS instructions a row (read with
    ``cuobjdump -sass``), times 4 cycles, over the SM clock;
-9. run the probe's ``sweep`` (lossy K1's and K3's tile and fine depth,
+11. run the probe's ``sweep`` (lossy K1's and K3's tile and fine depth,
    K2's and K5's tile and fine depth with fine 0 for one launch a level,
    K5's previews, the decodes' tile at more plane counts and sizes, X1's
    lanes a block) in a process of its own, whose traces hold every record,
@@ -96,6 +116,7 @@ import io
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -112,7 +133,7 @@ from rustyhgi_tpu_torch.ops.quantizers import (
     linear_error,
     quantize_fn,
 )
-from rustyhgi_tpu_torch.utils import container
+from rustyhgi_tpu_torch.utils import color, container
 from rustyhgi_tpu_torch.utils.container import (
     Archive,
     read_archive,
@@ -404,6 +425,39 @@ def compare_fast_kernels(rng) -> dict:
           f"(tolerance: exact), max_abs_err {worst}; every payload decodes to its input; "
           f"(lanes L, rows T) {real}; frequencies 1 and 16383 in one table; 4097x4096 "
           f"refused by X1")
+    return worst
+
+
+def compare_path_shapes(rng) -> dict:
+    """Phase 2, the color and tiled paths' shapes: K1 and K2 on [3, 1080,
+    1920], K1, K2 and X1 on [32, 512, 512] and K2 on [256, 512, 512], both
+    predictors for K1 and K2, against their plain versions, bit for bit;
+    returns the worst |err| of each."""
+    worst = dict.fromkeys(("K1", "K2", "X1"), 0)
+    cases = 0
+    for shape in [(3, 1080, 1920), (32, 512, 512), (256, 512, 512)]:
+        img = torch.from_numpy(_natural_plane(rng, shape)).to(DEVICE)
+        for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
+            table = _table(preset)
+            for pred in ("crossed", "left_top"):
+                grid, recon = cuda_codec.encode_plane(img, 4, table, pred)
+                want_grid, want_recon = pyramid.encode_plane(img, 4, table, pred)
+                err = max(_err(grid, want_grid), _err(recon, want_recon))
+                worst["K1"] = max(worst["K1"], err)
+                _check(err == 0, f"K1 differs from the plain version on {shape} {pred}")
+                err = _err(cuda_codec.decode_plane(grid, 4, pred),
+                           pyramid.decode_plane(grid, 4, pred))
+                worst["K2"] = max(worst["K2"], err)
+                _check(err == 0, f"K2 differs from the plain version on {shape} {pred}")
+                cases += 1
+            if shape[0] == 32:
+                sym = grid.reshape(32, -1)
+                err = _rans_err(tpurans.encode_batch(sym), tpurans.encode_plain(sym))
+                worst["X1"] = max(worst["X1"], err)
+                _check(err == 0, f"X1 differs from the plain version on {shape}")
+    print(f"phase path-shapes-vs-plain: K1 and K2 on {cases} cases of [3,1080,1920], "
+          f"[32,512,512] and [256,512,512], X1 on [32,512,512] lossless and medium, "
+          f"bit-identical (tolerance: exact), max_abs_err {worst}")
     return worst
 
 
@@ -790,6 +844,202 @@ def fast_path(rng, batch: np.ndarray, stages: dict, card: str) -> None:
           f"{CODEC_NAMES[blob[29]]}, {len(blob)} B in {took:.3f} ms (host clock) [{card}]")
 
 
+@contextlib.contextmanager
+def _stage_clock(targets: dict):
+    """Host seconds spent in each of ``targets`` ({label: (module,
+    attribute)}) while the block runs: each attribute is wrapped in a
+    timer, then put back.  The entry points import these names when they
+    are called, so their calls pass through the timers."""
+    spent = {label: 0.0 for label in targets}
+    saved = {label: getattr(module, attr) for label, (module, attr) in targets.items()}
+
+    def timed(label, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[label] += time.perf_counter() - t0
+        return call
+
+    for label, (module, attr) in targets.items():
+        setattr(module, attr, timed(label, saved[label]))
+    try:
+        yield spent
+    finally:
+        for label, (module, attr) in targets.items():
+            setattr(module, attr, saved[label])
+
+
+def _cli(argv, want=None) -> tuple:
+    """``cli.main(argv)`` with its standard error caught, failing the run
+    on a nonzero exit or on the tiled encoder's retry; ``want`` ({kernel:
+    n}) are the wrapper calls this one call must make.  Returns (host
+    seconds, standard error)."""
+    before = _read_launches()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    took = time.perf_counter() - t0
+    after = _read_launches()
+    label = " ".join(a for a in argv if a not in ("--device", DEVICE))
+    _check(rc == 0, f"cli {label} exited {rc}: {err.getvalue().strip()}")
+    _check("retrying" not in err.getvalue(), f"cli {label} retried: {err.getvalue().strip()}")
+    for kernel, n in (want or {}).items():
+        got = after[kernel] - before[kernel]
+        _check(got == n, f"cli {label} launched {kernel} {got} times, not {n}")
+    return took, err.getvalue()
+
+
+def _rgb_scene(rng, shape) -> np.ndarray:
+    """uint8 [H, W, 3]: one smooth scene in three channels with offsets
+    and a little noise each, correlated as a photograph's are."""
+    base = _natural_plane(rng, shape).astype(np.int16)
+    planes = [base + off + rng.integers(-2, 3, shape) for off in (14, 0, -11)]
+    return np.clip(np.stack(planes, 2), 0, 255).astype(np.uint8)
+
+
+def color_path(rng, card: str) -> None:
+    """Phase 7: color through the CLI at 1080x1920: ``encode --color
+    --format thgi`` (K1 once a transform: two at lossless, one at medium),
+    ``decode`` (K2 once for the three planes), ``decode --preview 2`` (K5 a
+    plane); the stages on the host clock; the bytes of a 256x384 crop
+    against ``--device cpu``."""
+    rgb = _rgb_scene(rng, (1080, 1920))
+    dev = ["--device", DEVICE]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            color.save_rgb("rgb.png", rgb)
+            color.save_rgb("crop.png", rgb[:256, :384])
+            for preset, transforms in (("lossless", 2), ("medium", 1)):
+                enc = ["encode", "-i", "rgb.png", "-o", "c.thgic", "--color", "--format", "thgi",
+                       "-q", preset, *dev]
+                with _stage_clock({"load_rgb": (color, "load_rgb"),
+                                   "encode_color": (color, "encode_color"),
+                                   "race": (color, "write_archive")}) as enc_s:
+                    enc_total, _ = _cli(enc, {"K1": transforms})
+                with open("c.thgic", "rb") as f:
+                    blob = f.read()
+                with _stage_clock({"decode_color": (color, "decode_color"),
+                                   "read_archive": (color, "read_archive"),
+                                   "save_rgb": (color, "save_rgb")}) as dec_s:
+                    dec_total, _ = _cli(["decode", "-i", "c.thgic", "-o", "d.png", *dev],
+                                        {"K2": 1, "K5": 0})
+                with _stage_clock({"decode_color_preview": (color, "decode_color_preview"),
+                                   "read_preview": (color, "read_preview")}) as pre_s:
+                    pre_total, _ = _cli(["decode", "-i", "c.thgic", "-o", "p.png",
+                                         "--preview", "2", *dev], {"K2": 0, "K5": 3})
+                full = color.load_rgb("d.png")
+                err = int(np.abs(full.astype(np.int64) - rgb).max())
+                _check(err <= linear_error(QuantizationLevel.parse(preset)),
+                       f"color {preset}: max |err| {err} over a channel")
+                _check(np.array_equal(color.load_rgb("p.png"), full[::4, ::4]),
+                       f"color {preset}: --preview 2 != the full decode sampled every 4")
+                cpu_s, _ = _cli(["encode", "-i", "crop.png", "-o", "cpu.thgic", "--color",
+                                 "--format", "thgi", "-q", preset, "--device", "cpu"])
+                _cli(["encode", "-i", "crop.png", "-o", "gpu.thgic", "--color", "--format", "thgi",
+                      "-q", preset, *dev], {"K1": transforms})
+                with open("cpu.thgic", "rb") as a, open("gpu.thgic", "rb") as b:
+                    _check(a.read() == b.read(),
+                           f"color {preset}: 256x384 .thgic bytes differ between cpu and cuda")
+                device_part = enc_s["encode_color"] - enc_s["race"]
+                print(
+                    f"color 1080x1920x3 {preset}: max |err| {err} a channel; transform "
+                    f"{'green-delta' if blob[5] else 'identity'}, {len(blob)} B; encode "
+                    f"{enc_total:.3f} s = load_rgb {enc_s['load_rgb']:.3f} + encode_color "
+                    f"{enc_s['encode_color']:.3f} (H2D, {transforms} K1, D2H {device_part:.3f}; "
+                    f"the race, {3 * transforms} write_thgi, {enc_s['race']:.3f}); decode "
+                    f"{dec_total:.3f} s = decode_color {dec_s['decode_color']:.3f} (host "
+                    f"read_archive {dec_s['read_archive']:.3f}; H2D, K2, D2H "
+                    f"{dec_s['decode_color'] - dec_s['read_archive']:.3f}) + save_rgb "
+                    f"{dec_s['save_rgb']:.3f}; preview 2 {pre_total:.3f} s = "
+                    f"decode_color_preview {pre_s['decode_color_preview']:.3f} (host "
+                    f"read_preview {pre_s['read_preview']:.3f}); 256x384 bytes equal to "
+                    f"--device cpu's ({cpu_s:.3f} s there) (host clock, s) [{card}]")
+        finally:
+            os.chdir(cwd)
+
+
+def tiled_path(rng, card: str) -> None:
+    """Phase 10: the tiled tier through the CLI: ``encode-tiled --fast``
+    and ``decode-tiled`` on an 8192x8192 plane at ``--tile 512`` (256
+    tiles, 8 chunks of 32: K1 and X1 eight times, K2 once), the host
+    coders' legs on 2048x2048 (``--format hgi``, ``--shared-table``), a
+    ``--resume`` of a file cut mid-block, and the bytes of a 1024x1024
+    plane at ``--tile 256`` against ``--device cpu``.  No leg may retry."""
+    dev = ["--device", DEVICE]
+    big = _natural_plane(rng, (8192, 8192))
+    mid = _natural_plane(rng, (2048, 2048))
+    small = _natural_plane(rng, (1024, 1024))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            save_gray("big.tif", big)  # uncompressed: the host's PNG codec stays out
+            save_gray("mid.tif", mid)
+            save_gray("small.tif", small)
+            for preset, bound in (("lossless", 0), ("medium", 20)):
+                with _stage_clock({"load_luma": (cli, "load_luma"),
+                                   "write_fast_batch": (HGICodec, "write_fast_batch")}) as enc_s:
+                    enc, _ = _cli(["encode-tiled", "-i", "big.tif", "-o", "big.thgit", "--tile",
+                                   "512", "--format", "thgi", "--fast", "-q", preset, *dev],
+                                  {"K1": 8, "X1": 8})
+                with _stage_clock({"parse_thgit": (container, "parse_thgit"),
+                                   "read_archive": (cli, "read_archive"),
+                                   "decode_plane": (HGICodec, "decode_plane"),
+                                   "save_gray": (cli, "save_gray")}) as dec_s:
+                    dec, _ = _cli(["decode-tiled", "-i", "big.thgit", "-o", "big_d.tif", *dev],
+                                  {"K2": 1})
+                err = int(np.abs(load_luma("big_d.tif").astype(np.int64) - big).max())
+                _check(err <= bound, f"tiled 8192x8192 --fast {preset}: max |err| {err} > {bound}")
+                size = os.path.getsize("big.thgit")
+                print(f"tiled 8192x8192 --tile 512 --fast {preset}: max |err| {err}, {size} B; "
+                      f"encode-tiled {enc:.3f} s (load_luma {enc_s['load_luma']:.3f}, 8 "
+                      f"write_fast_batch of 32 tiles {enc_s['write_fast_batch']:.3f}); "
+                      f"decode-tiled {dec:.3f} s (parse_thgit {dec_s['parse_thgit']:.3f}, 256 "
+                      f"read_archive {dec_s['read_archive']:.3f}, decode_plane (H2D, K2) "
+                      f"{dec_s['decode_plane']:.3f}, save_gray {dec_s['save_gray']:.3f}) "
+                      f"(host clock, s) [{card}]")
+            legs = {"hgi": ["--format", "hgi"], "shared": ["--format", "thgi", "--shared-table"]}
+            for leg, flags in legs.items():
+                argv = ["encode-tiled", "-i", "mid.tif", "-o", f"{leg}.thgit", "--tile", "512",
+                        "-q", "lossless", *flags, *dev]
+                enc, _ = _cli(argv, {"K1": 1})
+                dec, _ = _cli(["decode-tiled", "-i", f"{leg}.thgit", "-o", f"{leg}.tif", *dev],
+                              {"K2": 1})
+                _check(np.array_equal(load_luma(f"{leg}.tif"), mid),
+                       f"tiled 2048x2048 {leg} lossless is not bit-exact")
+                with open(f"{leg}.thgit", "rb") as f:
+                    whole = f.read()
+                # Cut the file halfway into block 7 of 16, then resume it.
+                off = 21 + (512 if whole[20] & 1 else 0)
+                for _ in range(7):
+                    off += 12 + struct.unpack_from("<Q", whole, off)[0]
+                with open("cut.thgit", "wb") as f:
+                    f.write(whole[:off + 12 + struct.unpack_from("<Q", whole, off)[0] // 2])
+                res, err_text = _cli([*argv[:4], "cut.thgit", *argv[5:], "--resume"], {"K1": 1})
+                _check("resuming at block 7/16" in err_text, f"tiled {leg}: no resume: {err_text}")
+                with open("cut.thgit", "rb") as f:
+                    _check(f.read() == whole, f"tiled {leg}: the resumed file != the whole one")
+                print(f"tiled 2048x2048 --tile 512 {leg} lossless: bit-exact, {len(whole)} B; "
+                      f"encode-tiled {enc:.3f} s, decode-tiled {dec:.3f} s, --resume from block "
+                      f"7/16 {res:.3f} s, equal to the uninterrupted file (host clock) [{card}]")
+            argv = ["encode-tiled", "-i", "small.tif", "--tile", "256", "--format", "thgi",
+                    "-q", "medium"]
+            gpu, _ = _cli([*argv, "-o", "gpu.thgit", *dev], {"K1": 1})
+            cpu, _ = _cli([*argv, "-o", "cpu.thgit", "--device", "cpu"], {"K1": 0})
+            with open("gpu.thgit", "rb") as a, open("cpu.thgit", "rb") as b:
+                _check(a.read() == b.read(), "tiled 1024x1024: .thgit bytes differ between "
+                       "cuda and cpu")
+            print(f"tiled 1024x1024 --tile 256 thgi medium: bytes equal on cuda ({gpu:.3f} s) "
+                  f"and cpu ({cpu:.3f} s) (host clock) [{card}]")
+        finally:
+            os.chdir(cwd)
+
+
 def _captured(fn):
     """``fn()`` with its standard output caught; returns (result, text)."""
     out = io.StringIO()
@@ -799,7 +1049,7 @@ def _captured(fn):
 
 
 def bench_tier(card: str) -> tuple:
-    """Phase 7: the probe, the CLI's bench and the bench through their
+    """Phase 9: the probe, the CLI's bench and the bench through their
     entry points, each with the launch counts set to 0 just before it and
     read just after; returns the probe's rows and each path's launches."""
     paths = {}
@@ -894,7 +1144,7 @@ def _device_trace(fn) -> tuple:
 
 
 def timing_inputs() -> dict:
-    """Phase 8's inputs, made once from a seed of their own: for 1x and
+    """Phase 10's inputs, made once from a seed of their own: for 1x and
     8x1080x1920 and each preset, ``(plane, table, K1's grid, K3's anchors,
     K3's quads)``."""
     rng = np.random.default_rng([SEED, 9])
@@ -915,9 +1165,9 @@ EARLY = ("K2", "K3", "K4", "K5")
 
 
 def kernel_device_times(inputs: dict, card: str) -> dict:
-    """Phase 8, early, while the profiler's traces hold every record: the
+    """Phase 10, early, while the profiler's traces hold every record: the
     device time and device launches a call of K2, K3 (and K3 with no recon
-    wanted, as the bench calls it), K4 and K5, on phase 8's own planes,
+    wanted, as the bench calls it), K4 and K5, on phase 10's own planes,
     grids and quads; ``{(kernel, shape, preset): (ms, launches)}``."""
     times = {}
     for (shape, preset), (img, table, grid, anchors, subbands) in inputs.items():
@@ -933,7 +1183,7 @@ def kernel_device_times(inputs: dict, card: str) -> dict:
             _check(dk is not None, f"{what}: the trace dropped records, no device time")
             times[kernel, shape, preset] = (dk, launched)
             print(f"device {what}: {dk:.4f} ms, {launched:g} device launch(es) a call, "
-                  f"torch.profiler mean of {REPEATS} calls on phase 8's inputs [{card}]")
+                  f"torch.profiler mean of {REPEATS} calls on phase 10's inputs [{card}]")
     return times
 
 
@@ -965,7 +1215,7 @@ def _shown(d, e) -> str:
 
 
 def timings(inputs: dict, card: str, peak_ops: float, early: dict) -> dict:
-    """Phase 8: kernel and plain version, same inputs, same call.  The
+    """Phase 10: kernel and plain version, same inputs, same call.  The
     device times and launches of K2-K5 come from ``early``
     (:func:`kernel_device_times`, on the same inputs)."""
     rows = {}
@@ -1048,7 +1298,7 @@ def timings(inputs: dict, card: str, peak_ops: float, early: dict) -> dict:
 
 
 def decode_launches(rng, card: str) -> None:
-    """Phase 8, K2's and K5's device launches a call at 1080x1920: one at
+    """Phase 10, K2's and K5's device launches a call at 1080x1920: one at
     L4 and for K5's preview at upto 2, 1 + 8 - DECODE_FINE_LEVELS at L8."""
     img = torch.from_numpy(_natural_plane(rng, (1080, 1920))).to(DEVICE)
     fine = cuda_codec.DECODE_FINE_LEVELS
@@ -1073,7 +1323,7 @@ def decode_launches(rng, card: str) -> None:
 
 
 def k1_launches(rng, card: str) -> None:
-    """Phase 8, K1's device launches a call at 1080x1920: one for lossless
+    """Phase 10, K1's device launches a call at 1080x1920: one for lossless
     at any depth, one for lossy up to FINE_LEVELS, one more per coarser
     level."""
     img = torch.from_numpy(_natural_plane(rng, (1080, 1920))).to(DEVICE)
@@ -1091,7 +1341,7 @@ def k1_launches(rng, card: str) -> None:
 
 
 def subband_launches(rng, card: str) -> None:
-    """Phase 8, K3's and K4's device launches a call at 1080x1920: K3 one
+    """Phase 10, K3's and K4's device launches a call at 1080x1920: K3 one
     when lossless at any depth, one when lossy up to FINE_LEVELS and one
     more per coarser level, with or without recon; K4 one."""
     img = torch.from_numpy(_natural_plane(rng, (1080, 1920))).to(DEVICE)
@@ -1115,8 +1365,36 @@ def subband_launches(rng, card: str) -> None:
           f"[{card}]")
 
 
+def new_path_shapes(rng, card: str) -> None:
+    """Phase 10, the shapes the color and tiled paths give the kernels:
+    device ms (torch.profiler) and device launches a call of K1 and K2 at
+    [3, 1080, 1920] (color's three planes), K1, X1 and K2 at [32, 512,
+    512] (a chunk of ``encode-tiled --fast``) and K2 at [256, 512, 512]
+    (``decode-tiled`` of 8192x8192); K1 and K2 must be one launch at L4,
+    X1 three kernels."""
+    shown = []
+    for shape in [(3, 1080, 1920), (32, 512, 512), (256, 512, 512)]:
+        img = torch.from_numpy(_natural_plane(rng, shape)).to(DEVICE)
+        for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
+            table = _table(preset)
+            grid = cuda_codec.encode_plane(img, 4, table)[0]
+            calls = [("K2", lambda: cuda_codec.decode_plane(grid, 4), 1)]
+            if shape[0] != 256:
+                calls[:0] = [("K1", lambda: cuda_codec.encode_plane(img, 4, table), 1)]
+            if shape[0] == 32:
+                calls.append(("X1", lambda: tpurans.encode_batch(grid.reshape(32, -1)), 3))
+            for name, fn, want in calls:
+                ms, n = _device_trace(fn)
+                _check(n in (None, want), f"{name} {preset.name.lower()} {list(shape)}: {n} "
+                                          f"device launches, {want} expected")
+                shown.append(f"{name} {preset.name.lower()} {list(shape)} " + (
+                    "not measured" if ms is None else f"{ms:.4f} ms, {n:g}"))
+    print(f"color and tiled shapes, device ms and device launches a call (torch.profiler, "
+          f"mean of {REPEATS} calls): {'; '.join(shown)} [{card}]")
+
+
 def x1_scaling(rng, card: str, chain: dict) -> None:
-    """Phase 8, X1 alone: its device time against its rows T and its
+    """Phase 10, X1 alone: its device time against its rows T and its
     threads B*L at medium, beside its chain bound.  A lane codes its T
     rows in turn, so while the card has idle room the time follows T, not
     the pixels."""
@@ -1173,12 +1451,15 @@ def main() -> int:
     k1_launches(np.random.default_rng([SEED, 1]), card)
     decode_launches(np.random.default_rng([SEED, 2]), card)
     subband_launches(np.random.default_rng([SEED, 3]), card)
+    new_path_shapes(np.random.default_rng([SEED, 12]), card)
     inputs = timing_inputs()
     early = kernel_device_times(inputs, card)
     rng = np.random.default_rng(SEED)
     worst = compare_kernels(rng)
     worst.update(compare_fast_kernels(rng))
     worst["K8"] = compare_probe(np.random.default_rng([SEED, 8]))  # leaves rng as it was
+    for kernel, err in compare_path_shapes(np.random.default_rng([SEED, 13])).items():
+        worst[kernel] = max(worst[kernel], err)
     reproduce_goldens()
 
     _reset_launches()
@@ -1214,6 +1495,22 @@ def main() -> int:
         _check(fast_launches[kernel] > 0, f"the fast path never launched {kernel}")
     for kernel in ("K6", "K7", "X1"):
         launches[kernel] = fast_launches[kernel]
+
+    # Seeds of their own, so that the phases after these draw what they drew.
+    t0 = time.perf_counter()
+    _reset_launches()
+    color_path(np.random.default_rng([SEED, 10]), card)
+    color_launches = _read_launches()
+    print(f"phase color: launches {color_launches} in {time.perf_counter() - t0:.1f} s")
+    for kernel in ("K1", "K2", "K5"):
+        _check(color_launches[kernel] > 0, f"the color path never launched {kernel}")
+    t0 = time.perf_counter()
+    _reset_launches()
+    tiled_path(np.random.default_rng([SEED, 11]), card)
+    tiled_launches = _read_launches()
+    print(f"phase tiled: launches {tiled_launches} in {time.perf_counter() - t0:.1f} s")
+    for kernel in ("K1", "X1", "K2"):
+        _check(tiled_launches[kernel] > 0, f"the tiled path never launched {kernel}")
 
     rates, bench_paths = bench_tier(card)
     launches["K8"] = bench_paths["vpucal"]["K8"]
@@ -1254,6 +1551,8 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": None,
         }
         record["device_launches"] = row["device_launches"]
+        record["launches_color"] = color_launches[kernel]
+        record["launches_tiled"] = tiled_launches[kernel]
         if kernel == "X1":  # the histogram stage against torch.bincount; the chain bound
             record["histogram_device_ms"] = row["histogram_device_ms"]
             record["bincount_ms"] = row["bincount_ms"]

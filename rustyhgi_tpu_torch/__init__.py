@@ -28,8 +28,13 @@ Public API::
     blob = codec.write_fast(image_u8_hw)          # .thgi coded on the device
     blobs = codec.write_fast_batch(images_u8_bhw)
 
-The ``.hgi`` main path, the ``.thgi`` subband path and the fast mode are
-ported; ROADMAP.md lists what follows.
+    blob = encode_color(codec, rgb_u8_hw3, fmt="thgi")  # .thgic, three planes
+    rgb = decode_color(blob)
+
+The ``.hgi`` main path, the ``.thgi`` subband path, the fast mode, color
+(:mod:`.utils.color`) and the tiled tier in one process
+(:mod:`.parallel`, the ``.thgit`` container, the CLI's ``encode-tiled``
+and ``decode-tiled``) are ported; ROADMAP.md lists what follows.
 """
 
 from .models.codec import CodecMetrics, HGICodec
@@ -40,6 +45,7 @@ from .ops.quantizers import (
     linear_table,
     quantize_fn,
 )
+from .utils.color import decode_color, encode_color
 from .utils.container import (
     Archive,
     Interpolation,
@@ -70,6 +76,8 @@ __all__ = [
     "read_thgi",
     "read_thgi_preview",
     "read_thgi_subbands",
+    "encode_color",
+    "decode_color",
     "write_archive",
     "write_hgi",
     "write_thgi",

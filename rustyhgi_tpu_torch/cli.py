@@ -17,13 +17,22 @@ the subband decode; any other archive goes through the grid.
 ``--preview N`` decodes only the coarsest N levels (of a ``.thgi``, only
 the payload prefix they need).
 
+``encode --color`` keeps RGB: three planes in one ``.thgic``
+(:mod:`.utils.color`), which ``decode`` reads by its magic, ``--preview``
+included.
+
+``encode-tiled`` cuts a plane into ``--tile`` squares, each its own
+archive, encodes them as one batch split over the devices of ``--mesh``
+(every CUDA device by default, or ``--device``'s), and streams them to a
+``.thgit`` v2 with a CRC a block; ``--resume`` continues an interrupted
+file from its first missing or corrupt block, ``--shared-table`` codes
+every block against one rANS table stored in the header, ``--fast``
+codes chunks of 32 tiles on the device.  ``decode-tiled`` decodes the
+blocks as one batch and crops the plane.
+
 ``bench`` runs the criterion suite (:mod:`.utils.benchsuite`) on the card
 (``--device cpu`` for the plain version on the host) and prints what the
 JAX CLI prints.
-
-What the port does not have yet exits with 1 and names the ROADMAP
-item that ports it: ``--color``, and the ``encode-tiled`` and
-``decode-tiled`` commands.
 
 Usage::
 
@@ -32,6 +41,9 @@ Usage::
     python -m rustyhgi_tpu_torch decode -i out.thgi -o roundtrip.png
     python -m rustyhgi_tpu_torch decode -i out.thgi -o preview.png --preview 2
     python -m rustyhgi_tpu_torch test img.png -l 4 -q lossless --device cuda
+    python -m rustyhgi_tpu_torch encode -i rgb.png -o out.thgic --color --format thgi
+    python -m rustyhgi_tpu_torch encode-tiled -i huge.png -o huge.thgit --tile 512 --format thgi --fast
+    python -m rustyhgi_tpu_torch decode-tiled -i huge.thgit -o huge_roundtrip.png
     python -m rustyhgi_tpu_torch bench --batch 8 --samples 25
 """
 
@@ -46,8 +58,8 @@ import numpy as np
 from .models.codec import HGICodec
 from .ops.predictors import predictor_name_for_tag
 from .ops.quantizers import QuantizationLevel
+from .utils.color import THGIC_MAGIC
 from .utils.container import (
-    THGIC_MAGIC,
     Archive,
     _magic,
     is_subband_thgi,
@@ -58,16 +70,7 @@ from .utils.container import (
 )
 from .utils.imageio import load_luma, save_gray
 
-# Flags and commands of the JAX CLI that this port does not have yet, with
-# the ROADMAP Queue 1 item that ports each.
-_UNPORTED_FLAGS = (("color", "--color", 10),)
-_UNPORTED_COMMANDS = {"encode-tiled": 11, "decode-tiled": 11}
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
-    )
+_FAST_CHUNK = 32  # tiles a K1 + X1 call of encode-tiled --fast
 
 
 def _add_device_options(p: argparse.ArgumentParser) -> None:
@@ -111,13 +114,13 @@ def _add_encoding_options(p: argparse.ArgumentParser) -> None:
         help="interpolation predictor (tagged in the archive; decode "
         "honors the tag)",
     )
-    p.add_argument("--color", action="store_true", help="not ported yet")
-
-
-def _refuse_unported(args) -> None:
-    for attr, flag, item in _UNPORTED_FLAGS:
-        if getattr(args, attr, False):
-            raise _not_ported(flag, item)
+    p.add_argument(
+        "--color",
+        action="store_true",
+        help="keep RGB (3 planes in one .thgic container; lossless uses a "
+        "reversible green-delta transform) instead of the reference's "
+        "luma conversion",
+    )
 
 
 def _codec(args, quant=QuantizationLevel.MEDIUM) -> HGICodec:
@@ -136,9 +139,15 @@ def _archive_codec(args, meta) -> HGICodec:
 
 
 def cmd_encode(args) -> int:
-    _refuse_unported(args)
     quant = QuantizationLevel.parse(args.quantizator)
     codec = _codec(args, quant)
+    if args.color:
+        from .utils.color import encode_color, load_rgb
+
+        blob = encode_color(codec, load_rgb(args.input), fmt=args.format)
+        with open(args.output, "wb") as f:
+            f.write(blob)
+        return 0
     image = load_luma(args.input)
     if args.format == "thgi" and args.fast:
         blob = codec.write_fast(image)
@@ -153,7 +162,14 @@ def cmd_decode(args) -> int:
     with open(args.input, "rb") as f:
         data = f.read()
     if _magic(data) == THGIC_MAGIC:
-        raise _not_ported(".thgic", 10)
+        from .utils.color import decode_color, decode_color_preview, save_rgb
+
+        if args.preview is not None:
+            rgb = decode_color_preview(data, args.preview, args.device, args.engine)
+        else:
+            rgb = decode_color(data, args.device, args.engine)
+        save_rgb(args.output, rgb)
+        return 0
     if args.preview is not None:
         # Only the coarsest N levels: a 2**(levels-N)-downsampled preview.
         meta, anchors, subbands, upto = read_preview(data, args.preview, device=args.device)
@@ -176,7 +192,6 @@ def cmd_decode(args) -> int:
 
 def cmd_test(args) -> int:
     # Mirrors main.rs:73-120: roundtrip, print metrics, write .png + archive.
-    _refuse_unported(args)
     quant = QuantizationLevel.parse(args.quantizator)
     image = load_luma(args.input)
     codec = _codec(args, quant)
@@ -198,6 +213,146 @@ def cmd_test(args) -> int:
     save_gray(stem + ".png", decoded)
     with open(stem + "." + args.format, "wb") as f:
         f.write(blob)
+    return 0
+
+
+def _mesh_devices(args, mesh_shape):
+    """The mesh's devices: every CUDA device for ``--device cuda``, else
+    ``--device``'s one device in every place of the mesh."""
+    import torch
+
+    dev = torch.device(args.device)
+    if dev == torch.device("cuda"):
+        return None
+    return [dev] * (mesh_shape[0] * mesh_shape[1] if mesh_shape else 1)
+
+
+def cmd_encode_tiled(args) -> int:
+    """The gigapixel path: independent tile archives in a ``.thgit`` v2.
+
+    Header (with the shared rANS table under ``--shared-table``), then a
+    block a tile in row-major tile order, each framed with its length and
+    CRC32 and flushed as it is written, so that an interrupted job leaves
+    a prefix ``--resume`` continues.
+    """
+    from .ops.entropy import normalized_freqs
+    from .parallel.mesh import make_mesh
+    from .parallel.sharded import encode_batch_sharded, pad_batch, tile_plane
+    from .utils.container import thgit2_block_frame, thgit2_header, thgit2_resume_point
+
+    quant = QuantizationLevel.parse(args.quantizator)
+    shared = args.shared_table
+    if shared and args.format != "thgi":
+        raise ValueError("--shared-table requires --format thgi")
+    image = load_luma(args.input)
+    mesh_shape = None
+    if args.mesh:
+        parts = args.mesh.split(",")
+        if len(parts) != 2:
+            raise ValueError("--mesh expects DATA,TILE (e.g. 4,2)")
+        mesh_shape = (int(parts[0]), int(parts[1]))
+
+    tiles, _ = tile_plane(image, (args.tile, args.tile))
+    n_tiles = tiles.shape[0]
+    h, w = image.shape
+
+    start = 0
+    mode = "wb"
+    freqs = None
+    if args.resume:
+        try:
+            with open(args.output, "rb") as f:
+                prefix = thgit2_resume_point(f.read(), args.tile, w, h)
+        except OSError:
+            prefix = None
+        if prefix is not None:
+            start, off, freqs = prefix
+            if shared and freqs is None:
+                raise ValueError("--shared-table resume needs a v2 archive with a table")
+            if start >= n_tiles:
+                return 0  # already complete
+            with open(args.output, "r+b") as f:
+                f.truncate(off)  # drop a trailing partial or corrupt block
+            mode = "ab"
+            print(f"resuming at block {start}/{n_tiles}", file=sys.stderr)
+
+    # The codec checks the engine and device before any work: a
+    # configuration error must not reach the retry below.
+    codec = _codec(args, quant)
+    if args.fast and (args.format != "thgi" or shared):
+        raise ValueError(
+            "--fast requires --format thgi and is incompatible with "
+            "--shared-table (the device coder builds per-tile tables)"
+        )
+    if args.fast:
+        from .ops.tpurans import MAX_SYMBOLS
+
+        if args.tile * args.tile > MAX_SYMBOLS:
+            # write_fast_batch would take the host coders tile by tile
+            # beyond the device coder's exact histogram.
+            raise ValueError(
+                f"--fast tile {args.tile} exceeds the device coder's "
+                f"envelope (tile*tile must be <= {MAX_SYMBOLS}); use a "
+                "smaller --tile or drop --fast"
+            )
+        # A chunk of tiles is one K1 and one X1 call; each block equals
+        # write_fast of its tile, so --resume and decode-tiled compose.
+        remaining = tiles[start:]
+        with open(args.output, mode) as f:
+            if mode == "wb":
+                f.write(thgit2_header(args.tile, w, h, n_tiles, None))
+            for lo in range(0, remaining.shape[0], _FAST_CHUNK):
+                for b in codec.write_fast_batch(remaining[lo : lo + _FAST_CHUNK]):
+                    f.write(thgit2_block_frame(b))
+                    f.flush()  # a valid resumable prefix at every block
+        return 0
+
+    mesh = make_mesh(mesh_shape, _mesh_devices(args, mesh_shape))
+    remaining = tiles[start:]
+    padded, _ = pad_batch(remaining, mesh.size)
+    # One retry, as the JAX CLI has, on the same mesh and engine: it never
+    # moves to the CPU or to the plain version.
+    for attempt in (1, 2):
+        try:
+            grids, _, _ = encode_batch_sharded(
+                padded, args.level, quant, mesh=mesh, predictor=args.predictor,
+                engine=args.engine,
+            )
+            grids_host = grids[: remaining.shape[0]].cpu().numpy()
+            break
+        except Exception as e:
+            if attempt == 2:
+                raise
+            print(f"encode attempt failed ({e}); retrying", file=sys.stderr)
+    if shared and freqs is None:
+        # A fresh shared run starts at tile 0, so this is the table of
+        # every real tile; the padding tiles stay out of it, which keeps
+        # the bytes independent of the mesh.
+        freqs = normalized_freqs(np.bincount(grids_host.reshape(-1), minlength=256))
+
+    with open(args.output, mode) as f:
+        if mode == "wb":
+            f.write(thgit2_header(args.tile, w, h, n_tiles, freqs))
+        meta = codec.metadata_for(args.tile, args.tile)
+        for grid in grids_host:
+            f.write(thgit2_block_frame(write_archive(Archive(meta, grid), args.format, freqs=freqs)))
+            f.flush()  # a valid resumable prefix at every block
+    return 0
+
+
+def cmd_decode_tiled(args) -> int:
+    from .parallel.sharded import untile_plane
+    from .utils.container import parse_thgit
+
+    with open(args.input, "rb") as f:
+        data = f.read()
+    # parse_thgit checks every v2 block's CRC and names a corrupt block.
+    tile, width, height, blocks, freqs = parse_thgit(data)
+    archives = [read_archive(block, freqs=freqs, device=args.device) for block in blocks]
+    # The last block's depth and tag drive the decode, as in the JAX CLI.
+    codec = _archive_codec(args, archives[-1].metadata)
+    tiles = codec.decode_plane(np.stack([a.grid for a in archives])).cpu().numpy()
+    save_gray(args.output, untile_plane(tiles, (height, width)))
     return 0
 
 
@@ -238,6 +393,40 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_test)
 
     p = sub.add_parser(
+        "encode-tiled",
+        help="tile a large image into independent streams, encode them as "
+        "one batch split over the devices, emit one block archive per tile",
+    )
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", required=True, help="output .thgit path")
+    p.add_argument("--tile", type=int, default=512, help="square tile size")
+    p.add_argument(
+        "--mesh",
+        type=str,
+        default=None,
+        help="device mesh shape as DATA,TILE (default: all devices on the data axis)",
+    )
+    p.add_argument(
+        "--resume",
+        action="store_true",
+        help="continue an interrupted job from the first missing block",
+    )
+    p.add_argument(
+        "--shared-table",
+        action="store_true",
+        help="entropy-code all blocks against one global rANS table "
+        "stored once in the header (requires --format thgi)",
+    )
+    _add_encoding_options(p)
+    p.set_defaults(fn=cmd_encode_tiled)
+
+    p = sub.add_parser("decode-tiled", help="decode a tiled archive back to an image")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", required=True)
+    _add_device_options(p)
+    p.set_defaults(fn=cmd_decode_tiled)
+
+    p = sub.add_parser(
         "bench",
         help="benchmark suite mirroring the reference's criterion benches",
     )
@@ -251,15 +440,8 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_bench)
 
-    for name in _UNPORTED_COMMANDS:
-        sub.add_parser(name, help="not ported yet")
-
-    args, extra = parser.parse_known_args(argv)
+    args = parser.parse_args(argv)
     try:
-        if args.command in _UNPORTED_COMMANDS:
-            raise _not_ported(args.command, _UNPORTED_COMMANDS[args.command])
-        if extra:
-            parser.error(f"unrecognized arguments: {' '.join(extra)}")
         return args.fn(args)
     except Exception as e:  # main.rs:130-133 error surface
         print(f"An error occured: {e}", file=sys.stderr)

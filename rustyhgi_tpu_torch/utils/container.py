@@ -1,7 +1,6 @@
-"""The ``.hgi`` and ``.thgi`` containers.
+"""The ``.hgi``, ``.thgi`` and ``.thgit`` containers.
 
-Counterpart of ``rustyhgi_tpu/utils/container.py`` (its ``.hgi`` and
-``.thgi`` parts), byte for byte:
+Counterpart of ``rustyhgi_tpu/utils/container.py``, byte for byte:
 
 * ``.hgi``: the reference's archive layout (reference:
   src/archive.rs:13-55, src/grid.rs:1-5), raw DEFLATE-9;
@@ -39,8 +38,12 @@ offset 28: raw DEFLATE (level 9, no zlib header) of      (archive.rs:36-38)
 metadata above, u8 layout tag, u8 codec tag, u64 LE raw payload size,
 then the coded payload.
 
-Not ported yet, each raising ``NotImplementedError`` that names the
-ROADMAP item porting it: the ``.thgic`` and ``.thgit`` containers.
+``.thgit`` holds a plane cut into tiles, each tile a standalone ``.hgi``
+or ``.thgi`` block in row-major tile order (:func:`thgit2_header`,
+:func:`thgit2_block_frame`, :func:`parse_thgit`, and
+:func:`thgit2_resume_point` for a job that resumes one).  The color container
+``.thgic`` is :mod:`.color`'s; :func:`read_archive` refuses it, and a
+``.thgit``, by their magic, as the JAX reader does.
 """
 
 from __future__ import annotations
@@ -79,18 +82,16 @@ __all__ = [
     "assemble_grid_np",
     "write_archive",
     "read_archive",
+    "THGIT_MAGIC",
+    "THGIT2_MAGIC",
+    "thgit2_header",
+    "thgit2_block_frame",
+    "thgit2_resume_point",
+    "parse_thgit",
 ]
 
 HGI_MAGIC = 0xBAAD_A555  # archive.rs:13
 THGI_MAGIC = 0x7B61_A555  # native container of the JAX package
-THGIC_MAGIC = 0x7C61_A555  # its color container
-THGIT_MAGICS = (0x7161_A555, 0x7161_A556)  # its tiled containers
-
-# ROADMAP Queue 1 items that port what this module refuses.
-_NOT_PORTED = {
-    "thgic": ".thgic is not ported yet (ROADMAP Queue 1 item 10)",
-    "thgit": ".thgit is not ported yet (ROADMAP Queue 1 item 11)",
-}
 
 # Decompression-bomb guard: the largest single plane a hostile header may
 # declare (1 GPix ~= 1 GB of pixels).
@@ -740,8 +741,6 @@ def write_archive(archive: Archive, fmt: str = "hgi", freqs=None) -> bytes:
         return write_hgi(archive)
     if fmt == "thgi":
         return write_thgi(archive, freqs=freqs)
-    if fmt in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[fmt])
     raise ValueError(f"unknown container format {fmt!r}")
 
 
@@ -753,8 +752,114 @@ def read_archive(data: bytes, freqs=None, device="cuda") -> Archive:
         return read_hgi(data)
     if magic == THGI_MAGIC:
         return read_thgi(data, freqs, device)
-    if magic == THGIC_MAGIC:
-        raise NotImplementedError(_NOT_PORTED["thgic"])
-    if magic in THGIT_MAGICS:
-        raise NotImplementedError(_NOT_PORTED["thgit"])
     raise ValueError("incorrect magic number")
+
+
+# -- .thgit: a plane as independent tile blocks --------------------------------
+
+THGIT_MAGIC = 0x7161_A555  # v1: u64 length a block, no CRC, no shared table
+THGIT2_MAGIC = 0x7161_A556  # v2: u8 flags [+ table], u64 length + u32 CRC a block
+
+_THGIT2_FLAG_TABLE = 1
+_THGIT2_HEAD = struct.Struct("<IIIIIB")  # magic, tile, width, height, blocks, flags
+_THGIT2_FRAME = struct.Struct("<QI")  # block length, crc32
+
+
+def thgit2_header(tile: int, width: int, height: int, n_blocks: int, freqs=None) -> bytes:
+    """A ``.thgit`` v2 header.
+
+    u32 LE magic, tile, width, height and block count, u8 flags (bit 0: a
+    shared rANS table follows), then the u16 LE table[256] when flagged.
+    Blocks follow as :func:`thgit2_block_frame` frames in row-major tile
+    order.
+    """
+    flags, table = 0, b""
+    if freqs is not None:
+        flags |= _THGIT2_FLAG_TABLE
+        table = _check_freqs(freqs).tobytes()
+    return _THGIT2_HEAD.pack(THGIT2_MAGIC, tile, width, height, n_blocks, flags) + table
+
+
+def thgit2_block_frame(block: bytes) -> bytes:
+    """One tile block: u64 LE length, u32 LE CRC32 of the block, the block."""
+    return _THGIT2_FRAME.pack(len(block), zlib.crc32(block)) + block
+
+
+def thgit2_resume_point(data: bytes, tile: int, width: int, height: int):
+    """Where a job resumes an existing ``.thgit``: ``(complete blocks, byte
+    offset after them, shared table)``.
+
+    Only a v2 file whose header names the job's ``(tile, width, height)``
+    resumes; its first partial or CRC-bad block ends the prefix.  A v1
+    file (no CRC framing to append to) or another job's file gives None:
+    the job starts from scratch.
+    """
+    if len(data) < _THGIT2_HEAD.size:
+        return None
+    magic, t, w, h, n, flags = _THGIT2_HEAD.unpack_from(data, 0)
+    if magic != THGIT2_MAGIC or (t, w, h) != (tile, width, height):
+        return None
+    freqs = None
+    off = _THGIT2_HEAD.size
+    if flags & _THGIT2_FLAG_TABLE:
+        if len(data) < off + _RANS_TABLE_BYTES:
+            return None
+        freqs = np.frombuffer(data, dtype="<u2", count=256, offset=off).copy()
+        off += _RANS_TABLE_BYTES
+    k = 0
+    while k < n and off + _THGIT2_FRAME.size <= len(data):
+        blen, crc = _THGIT2_FRAME.unpack_from(data, off)
+        body = off + _THGIT2_FRAME.size
+        if body + blen > len(data) or zlib.crc32(data[body : body + blen]) != crc:
+            break  # a partial or corrupt block: rewrite from here
+        off = body + blen
+        k += 1
+    return k, off, freqs
+
+
+def parse_thgit(data: bytes):
+    """A ``.thgit`` (v1 or v2) -> ``(tile, width, height, blocks, freqs)``.
+
+    ``blocks`` are the tile archives in row-major order and ``freqs`` the
+    shared rANS table (None without one).  Each v2 block's CRC is checked;
+    a mismatch raises ValueError naming the block.
+    """
+    if len(data) < 20:
+        raise ValueError("truncated tiled archive")
+    magic, tile, width, height, n = struct.unpack_from("<IIIII", data, 0)
+    freqs = None
+    if magic == THGIT_MAGIC:
+        off, v2 = 20, False
+    elif magic == THGIT2_MAGIC:
+        if len(data) < _THGIT2_HEAD.size:
+            raise ValueError("truncated tiled archive")
+        flags = data[20]
+        off, v2 = _THGIT2_HEAD.size, True
+        if flags & _THGIT2_FLAG_TABLE:
+            if len(data) < off + _RANS_TABLE_BYTES:
+                raise ValueError("truncated shared table")
+            freqs = np.frombuffer(data, dtype="<u2", count=256, offset=off).copy()
+            off += _RANS_TABLE_BYTES
+    else:
+        raise ValueError("incorrect magic number")
+    if tile == 0:
+        raise ValueError("implausible tiled header (zero tile size)")
+    hdr = _THGIT2_FRAME.size if v2 else 8
+    blocks = []
+    for i in range(n):
+        if off + hdr > len(data):
+            raise ValueError(f"truncated at block {i}/{n}")
+        if v2:
+            blen, crc = _THGIT2_FRAME.unpack_from(data, off)
+        else:
+            (blen,) = struct.unpack_from("<Q", data, off)
+            crc = None
+        off += hdr
+        if blen > len(data) - off:
+            raise ValueError(f"truncated at block {i}/{n}")
+        block = data[off : off + blen]
+        off += blen
+        if crc is not None and zlib.crc32(block) != crc:
+            raise ValueError(f"CRC mismatch in block {i}/{n}")
+        blocks.append(block)
+    return tile, width, height, blocks, freqs

@@ -86,20 +86,6 @@ def test_fast_flag_matches_jax_cli(png, capsys, argv, out):
     assert (want[29] == 7) == (argv[0] == "encode")  # codec 7: the device rANS
 
 
-@pytest.mark.parametrize(
-    "argv,item",
-    [
-        (["encode", "-i", "img.png", "-o", "x.thgic", "--color"], 10),
-        (["encode-tiled", "-i", "img.png", "-o", "x.thgit", "--tile", "16"], 11),
-        (["decode-tiled", "-i", "x.thgit", "-o", "x.png"], 11),
-    ],
-    ids=["color", "encode-tiled", "decode-tiled"],
-)
-def test_unported_surface_exits_1_naming_its_roadmap_item(png, capsys, argv, item):
-    assert main([*argv, *CPU] if argv[0] in ("encode", "decode", "test") else argv) == 1
-    assert f"ROADMAP Queue 1 item {item}" in capsys.readouterr().err
-
-
 @pytest.mark.parametrize("flags", [[], ["--batch", "2", "--samples", "2"]],
                          ids=["defaults", "batch-samples"])
 def test_bench_on_the_cpu_prints_the_eight_criterion_rows(capsys, monkeypatch, flags):

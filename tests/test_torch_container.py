@@ -124,13 +124,24 @@ def test_fast_codecs_write_and_read_like_jax():
         assert str(ours.value) == str(want.value)
 
 
-def test_other_containers_name_their_roadmap_item():
-    archive = tc.Archive(tc.Metadata(QuantizationLevel.LOW, 0, 2, 2, 1), np.zeros((2, 2), np.uint8))
-    with pytest.raises(ValueError, match="unknown container format"):
-        tc.write_archive(archive, "png")
-    for magic, item in ((tc.THGIC_MAGIC, 10), (tc.THGIT_MAGICS[1], 11)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-            tc.read_archive(struct.pack("<I", magic) + b"\x00" * 32)
-    for fmt, item in (("thgic", 10), ("thgit", 11)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-            tc.write_archive(archive, fmt)
+@pytest.mark.parametrize("magic", [0x7C61_A555, 0x7161_A555, 0x7161_A556],
+                         ids=["thgic", "thgit-v1", "thgit-v2"])
+def test_read_archive_refuses_other_containers_as_jax_does(magic):
+    """A .thgic or .thgit is not an archive: its own reader takes it."""
+    data = struct.pack("<I", magic) + b"\x00" * 32
+    with pytest.raises(ValueError) as want:
+        jc.read_archive(data)
+    with pytest.raises(ValueError) as got:
+        tc.read_archive(data, device="cpu")
+    assert str(got.value) == str(want.value) == "incorrect magic number"
+
+
+@pytest.mark.parametrize("fmt", ["thgic", "thgit", "png"])
+def test_write_archive_refuses_other_formats_as_jax_does(fmt):
+    meta = (QuantizationLevel.LOW, 0, 2, 2, 1)
+    grid = np.zeros((2, 2), np.uint8)
+    with pytest.raises(ValueError) as want:
+        jc.write_archive(jc.Archive(jc.Metadata(JQL(int(meta[0])), *meta[1:]), grid), fmt)
+    with pytest.raises(ValueError) as got:
+        tc.write_archive(tc.Archive(tc.Metadata(*meta), grid), fmt)
+    assert str(got.value) == str(want.value)

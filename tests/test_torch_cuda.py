@@ -548,3 +548,34 @@ def test_probe_kernel_launch_counter(cuda):
     vpucal.vpucal_chain(img, "mix3", 3)
     vpucal.vpucal_chain(torch.empty(0, 4, 4, dtype=torch.uint8, device=cuda), "mix3", 3)
     assert vpucal.vpucal_launches == before + 1
+
+
+@pytest.mark.parametrize("preset", ["lossless", "medium"])
+@pytest.mark.parametrize("pred", ["crossed", "left_top"])
+def test_color_on_the_card_writes_and_reads_the_cpu_bytes(cuda, preset, pred):
+    from rustyhgi_tpu_torch.utils import color
+
+    rgb = np.stack([_image((61, 77), seed=s) // (s + 1) for s in range(3)], 2)
+    blobs = [color.encode_color(HGICodec(4, preset, predictor=pred, device=d), rgb, "thgi")
+             for d in ("cpu", cuda)]
+    assert blobs[0] == blobs[1]
+    full = color.decode_color(blobs[1], device=cuda)
+    assert np.array_equal(full, color.decode_color(blobs[1], device="cpu"))
+    preview = color.decode_color_preview(blobs[1], 2, device=cuda)
+    assert np.array_equal(preview, full[::4, ::4])
+
+
+@pytest.mark.parametrize("preset", ["lossless", "medium"])
+def test_batch_split_on_the_card_matches_the_cpu(cuda, preset):
+    from rustyhgi_tpu_torch.parallel import (decode_batch_sharded, encode_batch_sharded,
+                                             make_mesh)
+
+    batch = _image((4, 40, 56))
+    q = QuantizationLevel.parse(preset)
+    on_card = encode_batch_sharded(batch, 4, q, mesh=make_mesh(), with_histogram=True)
+    on_cpu = encode_batch_sharded(batch, 4, q, mesh=make_mesh(devices=["cpu"] * 2),
+                                  with_histogram=True)
+    for got, want in zip(on_card, on_cpu):
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    decoded = decode_batch_sharded(on_card[0], 4, mesh=make_mesh())
+    assert torch.equal(decoded, on_card[1])

@@ -31,9 +31,13 @@ MODULES = [
     "rustyhgi_tpu_torch.ops.quantizers",
     "rustyhgi_tpu_torch.ops.tpurans",
     "rustyhgi_tpu_torch.ops.vpucal",
+    "rustyhgi_tpu_torch.parallel",
+    "rustyhgi_tpu_torch.parallel.mesh",
+    "rustyhgi_tpu_torch.parallel.sharded",
     "rustyhgi_tpu_torch.tools",
     "rustyhgi_tpu_torch.tools.chip_probe",
     "rustyhgi_tpu_torch.utils.benchsuite",
+    "rustyhgi_tpu_torch.utils.color",
     "rustyhgi_tpu_torch.utils.container",
     "rustyhgi_tpu_torch.utils.imageio",
     "rustyhgi_tpu_torch.utils.profiling",
@@ -63,6 +67,34 @@ def test_imports_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize(
+    "module", ["rustyhgi_tpu_torch.utils.color", "rustyhgi_tpu_torch.parallel"]
+)
+def test_color_and_parallel_load_neither_jax_nor_the_jax_package(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'rustyhgi_tpu')))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_multihost_names_refuse_naming_their_roadmap_item():
+    import rustyhgi_tpu_torch.parallel as par
+
+    for name in ("MultiHostConfig", "TiledEncodeResult", "encode_tiled_multihost",
+                 "decode_tiled_multihost", "write_thgit_multihost"):
+        assert name in par.__all__
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11b"):
+            getattr(par, name)()
 
 
 @pytest.mark.parametrize(

@@ -331,8 +331,18 @@ def test_cli_fast_writes_the_jax_fast_thgi(png):
         assert a.read() == b.read()
 
 
-def test_cli_thgic_still_refused(png, capsys):
-    with open("x.thgic", "wb") as f:
-        f.write(struct.pack("<I", tc.THGIC_MAGIC) + b"\x00" * 40)
-    assert main(["decode", "-i", "x.thgic", "-o", "x.png", "--preview", "1", *CPU]) == 1
-    assert "ROADMAP Queue 1 item 10" in capsys.readouterr().err
+@pytest.mark.parametrize("upto", [0, 1, 2, 3])
+def test_cli_thgic_preview_matches_jax(png, upto):
+    """A .thgic is read by its magic, --preview included."""
+    from rustyhgi_tpu_torch.utils.color import load_rgb, save_rgb
+
+    gray = load_luma(png)
+    save_rgb("rgb.png", np.stack([gray, gray // 2 + 40, 255 - gray], 2))
+    argv = ["encode", "-i", "rgb.png", "-o", "x.thgic", "--color", "--format", "thgi", "-l", "3"]
+    assert jax_main(argv) == 0
+    preview = ["--preview", str(upto)]
+    assert jax_main(["decode", "-i", "x.thgic", "-o", "ref.png", *preview]) == 0
+    assert main(["decode", "-i", "x.thgic", "-o", "ours.png", *preview, *CPU]) == 0
+    assert np.array_equal(load_rgb("ours.png"), load_rgb("ref.png"))
+    s = 1 << (3 - upto)
+    assert load_rgb("ours.png").shape == (-(-37 // s), -(-61 // s), 3)
