@@ -65,11 +65,36 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    ``--shared-table`` at lossless on 2048x2048 (one K1 call each), each
    file cut halfway into a block and ``--resume``d back to the same
    bytes; a 1024x1024 plane at ``--tile 256`` with the same bytes on
-   ``--device cuda`` and ``cpu``; no leg may print the encoder's retry.
-   Each of the phases 4-8 runs with the launch counts set to 0 just
-   before it and read just after, and fails unless it launched its
-   kernels;
-9. drive the bench tier through its entry points, each run with the
+   ``--device cuda`` and ``cpu``; no leg may print the encoder's retry;
+9. drive the multi-process tiled tier with two ranks on the one card
+   (``rustyhgi_tpu_torch.tools.multihost_run``: worker processes in a
+   gloo group on 127.0.0.1, killed on a timeout), ``--tile 512``,
+   ``thgi`` with the shared table, lossless and medium on 4096x4096,
+   both planes in one launch: each rank's share, K1 and K2 calls, stage
+   times and gathered bytes printed; the shares disjoint and covering,
+   the ``.thgit`` the same on both ranks and equal to the one-process
+   ``encode-tiled --shared-table`` file (and at lossless to a
+   one-process ``encode_tiled_multihost``), the decode within the bound
+   on both ranks;
+10. export the K1/K2 programs (``export_encoder``/``export_decoder``)
+   at 1080x1920 L4, lossless and medium, both predictors, and load them
+   in a fresh process (this script with ``--export-worker DIR``), hold
+   their outputs bit for bit against ``encode_plane``/``decode_plane``
+   and their K1 and K2 calls at one each; that process also times its
+   first ``encode_plane`` cold against one after ``compile((1080,
+   1920))``;
+11. run ``dryrun_multichip(4)`` on four places of the one card, and
+   ``entry()``'s forward;
+12. run the worked examples (``rustyhgi_tpu_torch.examples.serving``)
+   on the card, every section's check true.
+   Each of the phases 4-12 runs with the launch counts set to 0 just
+   before it and read just after (the worker processes' calls added),
+   and fails unless it launched its kernels.  In phases 9-12 every
+   launch of K1-K5 and X1 in this process is recorded (the count must
+   equal the launch counter's), and after them each distinct launch is
+   made again on a copy of its inputs and held bit for bit against the
+   plain version; the worker processes launch at phase 2's shapes;
+13. drive the bench tier through its entry points, each run with the
    launch counts set to 0 just before it and read just after: the probe
    ``python -m rustyhgi_tpu_torch.tools.chip_probe vpucal`` (K8; its
    rates, and the SASS instructions each chain issues a round), the
@@ -78,7 +103,7 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    are printed.  The bench runs its host-coder group (DEFLATE-9 included)
    on the whole batch: on an H100 the whole bench takes about 15 s, well
    short of doubling this script's time;
-10. time each kernel and its plain version with CUDA events, and read
+14. time each kernel and its plain version with CUDA events, and read
    the kernel's device time alone, and the device kernels one call
    launches, with ``torch.profiler`` (lossless K1 must be one launch at
    depths 4 and 8, lossy K1 one at depth 4, K2 and K5 one at depth 4 and
@@ -97,7 +122,7 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    higher.  X1 also has a chain bound: its rows T times the dependent
    chain of its lanes loop, in SASS instructions a row (read with
    ``cuobjdump -sass``), times 4 cycles, over the SM clock;
-11. run the probe's ``sweep`` (lossy K1's and K3's tile and fine depth,
+15. run the probe's ``sweep`` (lossy K1's and K3's tile and fine depth,
    K2's and K5's tile and fine depth with fine 0 for one launch a level,
    K5's previews, the decodes' tile at more plane counts and sizes, X1's
    lanes a block) in a process of its own, whose traces hold every record,
@@ -112,9 +137,11 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import inspect
 import io
 import json
 import os
+import shutil
 import statistics
 import struct
 import subprocess
@@ -126,7 +153,9 @@ import zlib
 import numpy as np
 import torch
 
-from rustyhgi_tpu_torch import HGICodec, bench, cli
+from rustyhgi_tpu_torch import HGICodec, bench, cli, dryrun
+from rustyhgi_tpu_torch.examples import serving
+from rustyhgi_tpu_torch.models.codec import load_exported
 from rustyhgi_tpu_torch.ops import _build, bitpack, cuda_codec, native, pyramid, tpurans, vpucal
 from rustyhgi_tpu_torch.ops.quantizers import (
     QuantizationLevel,
@@ -145,9 +174,11 @@ from rustyhgi_tpu_torch.utils.container import (
     write_hgi,
     write_thgi,
 )
-from rustyhgi_tpu_torch.tools import chip_probe, decode_times
+from rustyhgi_tpu_torch.parallel import multihost
+from rustyhgi_tpu_torch.tools import chip_probe, decode_times, multihost_run
 from rustyhgi_tpu_torch.utils.benchsuite import SUITE, device_samples
 from rustyhgi_tpu_torch.utils.imageio import load_luma, save_gray
+from rustyhgi_tpu_torch.utils.profiling import stage_clock
 
 DEVICE = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -430,9 +461,10 @@ def compare_fast_kernels(rng) -> dict:
 
 def compare_path_shapes(rng) -> dict:
     """Phase 2, the color and tiled paths' shapes: K1 and K2 on [3, 1080,
-    1920], K1, K2 and X1 on [32, 512, 512] and K2 on [256, 512, 512], both
-    predictors for K1 and K2, against their plain versions, bit for bit;
-    returns the worst |err| of each."""
+    1920], K1, K2 and X1 on [32, 512, 512] (also a multihost rank's share,
+    phase 9) and K2 on [256, 512, 512], both predictors for K1 and K2,
+    against their plain versions, bit for bit; returns the worst |err| of
+    each."""
     worst = dict.fromkeys(("K1", "K2", "X1"), 0)
     cases = 0
     for shape in [(3, 1080, 1920), (32, 512, 512), (256, 512, 512)]:
@@ -459,6 +491,125 @@ def compare_path_shapes(rng) -> dict:
           f"[32,512,512] and [256,512,512], X1 on [32,512,512] lossless and medium, "
           f"bit-identical (tolerance: exact), max_abs_err {worst}")
     return worst
+
+
+# The wrapper that launches each kernel of phases 9-12 in this process, once
+# a call, with its plain version and the arguments that version takes.
+# Every other wrapper of a kernel reaches this one through its module, so
+# that replacing the module's name sees each launch.
+LAUNCHERS = {
+    "K1": (cuda_codec, "encode_plane_tiled", pyramid.encode_plane,
+           ("image", "levels", "table", "predictor")),
+    "K2": (cuda_codec, "decode_plane_tiled", pyramid.decode_plane,
+           ("grid", "levels", "predictor")),
+    "K3": (cuda_codec, "encode_subbands_tiled", pyramid.encode_subbands,
+           ("image", "levels", "table", "predictor", "want_recon")),
+    "K4": (cuda_codec, "assemble_grid", pyramid.assemble_grid, ("anchors", "subbands", "shape")),
+    "K5": (cuda_codec, "decode_preview_tiled", pyramid.decode_preview,
+           ("anchors", "subbands", "shape", "levels", "upto", "predictor")),
+    "X1": (tpurans, "encode_batch", tpurans.encode_plain, ("sym",)),
+}
+
+
+def _call_key(x):
+    """What tells two launches' arguments apart: shapes, a quantization
+    table by its values, everything else by value."""
+    if isinstance(x, torch.Tensor):
+        if x.dim() == 1 and x.numel() == 256:
+            return ("table", x.cpu().numpy().tobytes())
+        return ("tensor", tuple(x.shape), str(x.dtype))
+    if isinstance(x, (list, tuple)):
+        return tuple(_call_key(y) for y in x)
+    return x
+
+
+def _copied(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_copied(y) for y in x)
+    return x
+
+
+def _output_pairs(kernel: str, got, want, tag: str) -> list:
+    """(the kernel's tensor, the plain version's) of each output of a
+    launch of K1-K5; K3's recon only where the kernel returned one."""
+    if kernel == "K1":
+        return list(zip(got, want))
+    if kernel == "K3":
+        _check(len(got[1]) == len(want[1]), f"{tag}: K3 level count differs")
+        pairs = [(got[0], want[0])] + [(q, wq) for qs, wqs in zip(got[1], want[1])
+                                       for q, wq in zip(qs, wqs)]
+        return pairs + ([(got[2], want[2])] if got[2] is not None else [])
+    return [(got, want)]
+
+
+class _Recorder:
+    """Within ``with``, every launch of K1-K5 and X1 in this process is
+    counted, and the first launch of each distinct set of arguments keeps
+    a copy of its inputs, so that :meth:`replay` can hold the kernel
+    against its plain version at every shape the phases gave it."""
+
+    def __init__(self):
+        self.calls, self.seen, self.active = {}, dict.fromkeys(LAUNCHERS, 0), False
+        self.launchers = {k: getattr(module, name) for k, (module, name, _, _) in
+                          LAUNCHERS.items()}
+        for kernel, (module, name, _, _) in LAUNCHERS.items():
+            setattr(module, name, self._wrapped(kernel, self.launchers[kernel]))
+
+    def _wrapped(self, kernel, launcher):
+        def launch(*args, **kwargs):
+            if not self.active:
+                return launcher(*args, **kwargs)
+            key = (kernel, _call_key((args, tuple(sorted(kwargs.items())))))
+            copy = None if key in self.calls else _copied((args, kwargs))
+            before = _read_launches()[kernel]
+            out = launcher(*args, **kwargs)
+            if _read_launches()[kernel] > before:
+                self.seen[kernel] += 1
+                if copy is not None:
+                    self.calls[key] = copy
+            return out
+        return launch
+
+    def __enter__(self):
+        self.active = True
+        return self
+
+    def __exit__(self, *exc):
+        self.active = False
+
+    def close(self) -> None:
+        for kernel, (module, name, _, _) in LAUNCHERS.items():
+            setattr(module, name, self.launchers[kernel])
+
+    def replay(self) -> tuple:
+        """Each recorded launch again, against the plain version on the
+        same inputs, bit for bit; returns (worst |err| of each kernel,
+        {kernel: sorted shapes})."""
+        worst = dict.fromkeys(LAUNCHERS, 0)
+        shapes = {k: set() for k in LAUNCHERS}
+        for (kernel, _), (args, kwargs) in self.calls.items():
+            _, _, plain, names = LAUNCHERS[kernel]
+            launcher = self.launchers[kernel]
+            bound = inspect.signature(launcher).bind(*args, **kwargs)
+            bound.apply_defaults()
+            a = bound.arguments
+            got, want = launcher(*args, **kwargs), plain(*(a[n] for n in names))
+            first = a[names[0]]
+            tag = " ".join([kernel, str(list(first.shape))] + [
+                f"{n}={a[n]}" for n in names[1:] if isinstance(a[n], (int, str))])
+            if kernel == "X1":
+                err = _rans_err(got, want)
+            else:
+                err = max(_err(g, w) for g, w in _output_pairs(kernel, got, want, tag))
+            worst[kernel] = max(worst[kernel], err)
+            _check(err == 0, f"{tag} differs from the plain version")
+            shapes[kernel].add(" ".join([str(list(first.shape))] + (
+                [f"of {tuple(a['shape'])}"] if "shape" in a else []) + (
+                [f"L{a['levels']}"] if "levels" in a else [])))
+        torch.cuda.synchronize()
+        return worst, {k: sorted(v) for k, v in shapes.items() if v}
 
 
 def compare_probe(rng) -> int:
@@ -844,33 +995,6 @@ def fast_path(rng, batch: np.ndarray, stages: dict, card: str) -> None:
           f"{CODEC_NAMES[blob[29]]}, {len(blob)} B in {took:.3f} ms (host clock) [{card}]")
 
 
-@contextlib.contextmanager
-def _stage_clock(targets: dict):
-    """Host seconds spent in each of ``targets`` ({label: (module,
-    attribute)}) while the block runs: each attribute is wrapped in a
-    timer, then put back.  The entry points import these names when they
-    are called, so their calls pass through the timers."""
-    spent = {label: 0.0 for label in targets}
-    saved = {label: getattr(module, attr) for label, (module, attr) in targets.items()}
-
-    def timed(label, fn):
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                spent[label] += time.perf_counter() - t0
-        return call
-
-    for label, (module, attr) in targets.items():
-        setattr(module, attr, timed(label, saved[label]))
-    try:
-        yield spent
-    finally:
-        for label, (module, attr) in targets.items():
-            setattr(module, attr, saved[label])
-
-
 def _cli(argv, want=None) -> tuple:
     """``cli.main(argv)`` with its standard error caught, failing the run
     on a nonzero exit or on the tiled encoder's retry; ``want`` ({kernel:
@@ -917,18 +1041,18 @@ def color_path(rng, card: str) -> None:
             for preset, transforms in (("lossless", 2), ("medium", 1)):
                 enc = ["encode", "-i", "rgb.png", "-o", "c.thgic", "--color", "--format", "thgi",
                        "-q", preset, *dev]
-                with _stage_clock({"load_rgb": (color, "load_rgb"),
+                with stage_clock({"load_rgb": (color, "load_rgb"),
                                    "encode_color": (color, "encode_color"),
                                    "race": (color, "write_archive")}) as enc_s:
                     enc_total, _ = _cli(enc, {"K1": transforms})
                 with open("c.thgic", "rb") as f:
                     blob = f.read()
-                with _stage_clock({"decode_color": (color, "decode_color"),
+                with stage_clock({"decode_color": (color, "decode_color"),
                                    "read_archive": (color, "read_archive"),
                                    "save_rgb": (color, "save_rgb")}) as dec_s:
                     dec_total, _ = _cli(["decode", "-i", "c.thgic", "-o", "d.png", *dev],
                                         {"K2": 1, "K5": 0})
-                with _stage_clock({"decode_color_preview": (color, "decode_color_preview"),
+                with stage_clock({"decode_color_preview": (color, "decode_color_preview"),
                                    "read_preview": (color, "read_preview")}) as pre_s:
                     pre_total, _ = _cli(["decode", "-i", "c.thgic", "-o", "p.png",
                                          "--preview", "2", *dev], {"K2": 0, "K5": 3})
@@ -964,7 +1088,7 @@ def color_path(rng, card: str) -> None:
 
 
 def tiled_path(rng, card: str) -> None:
-    """Phase 10: the tiled tier through the CLI: ``encode-tiled --fast``
+    """Phase 8: the tiled tier through the CLI: ``encode-tiled --fast``
     and ``decode-tiled`` on an 8192x8192 plane at ``--tile 512`` (256
     tiles, 8 chunks of 32: K1 and X1 eight times, K2 once), the host
     coders' legs on 2048x2048 (``--format hgi``, ``--shared-table``), a
@@ -982,12 +1106,12 @@ def tiled_path(rng, card: str) -> None:
             save_gray("mid.tif", mid)
             save_gray("small.tif", small)
             for preset, bound in (("lossless", 0), ("medium", 20)):
-                with _stage_clock({"load_luma": (cli, "load_luma"),
+                with stage_clock({"load_luma": (cli, "load_luma"),
                                    "write_fast_batch": (HGICodec, "write_fast_batch")}) as enc_s:
                     enc, _ = _cli(["encode-tiled", "-i", "big.tif", "-o", "big.thgit", "--tile",
                                    "512", "--format", "thgi", "--fast", "-q", preset, *dev],
                                   {"K1": 8, "X1": 8})
-                with _stage_clock({"parse_thgit": (container, "parse_thgit"),
+                with stage_clock({"parse_thgit": (container, "parse_thgit"),
                                    "read_archive": (cli, "read_archive"),
                                    "decode_plane": (HGICodec, "decode_plane"),
                                    "save_gray": (cli, "save_gray")}) as dec_s:
@@ -1040,6 +1164,213 @@ def tiled_path(rng, card: str) -> None:
             os.chdir(cwd)
 
 
+# The multihost phase's legs: (preset, side of the plane, error bound).
+MULTIHOST_LEGS = (("lossless", 4096, 0), ("medium", 4096, 20))
+MULTIHOST_TILE = 512
+EXPORT_SHAPE = (1080, 1920)
+
+
+def multihost_path(rng, card: str) -> dict:
+    """Phase 9: the multi-process tiled tier, two ranks on the one card
+    (``tools.multihost_run``: gloo on 127.0.0.1, a free port, a timeout on
+    the ranks), ``--tile 512``, ``fmt="thgi"``, ``shared_table=True``, at
+    lossless and medium on 4096x4096 (64 tiles, a rank's share [32, 512,
+    512], held against the plain version in phase 2), both planes in one
+    launch.  Each rank's share, K1 and K2 calls, stage times and gathered
+    bytes are printed; the shares must be disjoint and cover every tile,
+    both ranks must write the same ``.thgit``, equal to the one-process
+    ``encode-tiled --shared-table`` file (and, at lossless, to a
+    one-process ``encode_tiled_multihost``), and both must decode the
+    plane within the bound.  Returns the ranks' K1 and K2 calls."""
+    rank_launches = {"K1": 0, "K2": 0}
+    flags = ["--tile", str(MULTIHOST_TILE), "-l", "4", "--format", "thgi", "--shared-table"]
+    with tempfile.TemporaryDirectory() as tmp:
+        planes, argv = [], []
+        for preset, side, _ in MULTIHOST_LEGS:
+            planes.append(_natural_plane(rng, (side, side)))
+            src = os.path.join(tmp, f"{preset}.tif")
+            save_gray(src, planes[-1])
+            argv += ["-i", src, "-q", preset, "-o", os.path.join(tmp, f"{preset}.thgit")]
+        t0 = time.perf_counter()
+        records = multihost_run.rank_records(multihost_run.run_ranks(
+            [*argv, *flags, "--device", DEVICE], 2, timeout=300))
+        took = time.perf_counter() - t0
+        _check(len(records) == 2 * len(MULTIHOST_LEGS), "multihost: records missing")
+        print(f"multihost: two ranks coded {len(MULTIHOST_LEGS)} planes in {took:.3f} s (host "
+              f"clock, the processes' start included) [{card}]")
+        for leg, ((preset, side, bound), plane) in enumerate(zip(MULTIHOST_LEGS, planes)):
+            pair = [r for r in records if r["leg"] == leg]
+            n_tiles = (side // MULTIHOST_TILE) ** 2
+            _check([r["rank"] for r in pair] == [0, 1], f"multihost {preset}: ranks missing")
+            shares = [set(r["local_indices"]) for r in pair]
+            _check(not shares[0] & shares[1] and shares[0] | shares[1] == set(range(n_tiles)),
+                   f"multihost {preset}: shares overlap or miss tiles")
+            digest = pair[0]["thgit_sha256"]
+            _check(pair[1]["thgit_sha256"] == digest, f"multihost {preset}: ranks differ")
+            for r in pair:
+                _check(r["max_abs_err"] <= bound,
+                       f"multihost {preset}: rank {r['rank']} max |err| {r['max_abs_err']}")
+                for kernel in ("K1", "K2"):
+                    _check(r["launches"][kernel] >= 1,
+                           f"multihost {preset}: rank {r['rank']} never launched {kernel}")
+                    rank_launches[kernel] += r["launches"][kernel]
+                s = r["seconds"]
+                share = sorted(r["local_indices"])
+                print(f"multihost {side}x{side} {preset} rank {r['rank']}/2: tiles "
+                      f"{share[0]}-{share[-1]} ({len(share)}); K1 {r['launches']['K1']}, K2 "
+                      f"{r['launches']['K2']}; device encode {s['device_encode']:.3f} s, host "
+                      f"coding {s['host_coding']:.3f} s, gather {s['gather']:.3f} s (encode "
+                      f"{s['encode']:.3f} s), decode {s['decode']:.3f} s (host clock); gathered "
+                      f"{r['dcn_payload_bytes']} B a rank for {r['compressed_bytes']} B coded "
+                      f"of {r['raw_bytes']} B raw; max |err| {r['max_abs_err']} [{card}]")
+            src, out = os.path.join(tmp, f"{preset}.tif"), os.path.join(tmp, f"{preset}.thgit")
+            with open(out, "rb") as f:
+                _check(_sha(f.read()) == digest, f"multihost {preset}: rank 0's file")
+            one = os.path.join(tmp, "one.thgit")
+            cli_s, _ = _cli(["encode-tiled", "-i", src, "-o", one, "-q", preset, *flags,
+                             "--device", DEVICE], {"K1": 1})
+            with open(one, "rb") as f:
+                _check(_sha(f.read()) == digest,
+                       f"multihost {preset}: != the one-process encode-tiled file")
+            line = (f"multihost {side}x{side} {preset}: .thgit {digest[:16]} on both ranks, "
+                    f"equal to one-process encode-tiled --shared-table ({cli_s:.3f} s)")
+            if preset == "lossless":
+                t0 = time.perf_counter()
+                res = multihost.encode_tiled_multihost(
+                    plane, (MULTIHOST_TILE,) * 2, 4, QuantizationLevel.parse(preset),
+                    shared_table=True, devices=[torch.device(DEVICE)])
+                blob = multihost.write_thgit_multihost(res, MULTIHOST_TILE)
+                _check(_sha(blob) == digest and res.dcn_payload_bytes == 0,
+                       f"multihost {preset}: the one-process run differs")
+                line += (f" and to a one-process encode_tiled_multihost "
+                         f"({time.perf_counter() - t0:.3f} s)")
+            print(f"{line} (host clock) [{card}]")
+    return rank_launches
+
+
+def _export_worker(folder: str) -> int:
+    """The export phase's fresh process: the first call of a cold process
+    against one after ``compile``, then each exported program loaded and
+    held bit for bit against ``HGICodec``; prints one JSON line."""
+    entered = time.perf_counter()
+    img = torch.from_numpy(np.load(os.path.join(folder, "image.npy"))).to(DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    HGICodec(4, "medium", device=DEVICE).encode_plane(img)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    codec = HGICodec(4, "medium", device=DEVICE)
+    t0 = time.perf_counter()
+    codec.compile(EXPORT_SHAPE)
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codec.encode_plane(img)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    rows = {}
+    loads = runs = 0.0
+    for name in sorted(os.listdir(folder)):
+        if not name.startswith("enc_"):
+            continue
+        _, preset, pred = name[:-4].split("_", 2)
+        t0 = time.perf_counter()
+        with open(os.path.join(folder, name), "rb") as f:
+            enc = load_exported(f.read())
+        with open(os.path.join(folder, f"dec_{preset}_{pred}.pt2"), "rb") as f:
+            dec = load_exported(f.read())
+        loads += time.perf_counter() - t0
+        _reset_launches()
+        t0 = time.perf_counter()
+        grid, recon = enc(img)
+        out = dec(grid)
+        torch.cuda.synchronize()
+        runs += time.perf_counter() - t0
+        launches = _read_launches()
+        ref = HGICodec(4, preset, predictor=pred, device=DEVICE)
+        want_grid, want_recon = ref.encode_plane(img)
+        rows[f"{preset} {pred}"] = {
+            "equal": bool(torch.equal(grid, want_grid) and torch.equal(recon, want_recon)
+                          and torch.equal(out, ref.decode_plane(want_grid))),
+            "K1": launches["K1"], "K2": launches["K2"],
+        }
+    print(json.dumps({"cold_first_s": cold, "compile_s": compile_s, "after_compile_first_s": warm,
+                      "loads_s": loads, "runs_s": runs,
+                      "worker_s": time.perf_counter() - entered, "programs": rows}))
+    return 0
+
+
+def export_path(rng, card: str) -> dict:
+    """Phase 10: ``export_encoder``/``export_decoder`` at 1080x1920 L4,
+    lossless and medium, both predictors, on the card, to files; a fresh
+    process (this script with ``--export-worker DIR``) loads them and
+    holds their outputs bit for bit against ``encode_plane`` /
+    ``decode_plane``, each launching K1 and K2 once, and times a cold
+    first call against one after ``compile``.  Returns its K1 and K2
+    calls."""
+    folder = tempfile.mkdtemp()
+    try:
+        np.save(os.path.join(folder, "image.npy"), _natural_plane(rng, EXPORT_SHAPE))
+        t0 = time.perf_counter()
+        sizes = []
+        for preset in ("lossless", "medium"):
+            for pred in ("crossed", "left_top"):
+                codec = HGICodec(4, preset, predictor=pred, device=DEVICE)
+                for stage, blob in (("enc", codec.export_encoder(EXPORT_SHAPE)),
+                                    ("dec", codec.export_decoder(EXPORT_SHAPE))):
+                    with open(os.path.join(folder, f"{stage}_{preset}_{pred}.pt2"), "wb") as f:
+                        f.write(blob)
+                    sizes.append(len(blob))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--export-worker",
+                               folder], cwd=ROOT, capture_output=True, text=True, timeout=300)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    _check(proc.returncode == 0, f"the export worker failed:\n{proc.stderr[-4000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches = {"K1": 0, "K2": 0}
+    for label, row in result["programs"].items():
+        _check(row["equal"], f"export {label}: the loaded programs differ from HGICodec")
+        for kernel in launches:
+            _check(row[kernel] == 1, f"export {label}: {kernel} launched {row[kernel]} times")
+            launches[kernel] += row[kernel]
+    _check(len(result["programs"]) == 4, "export: not every program was loaded")
+    print(f"export {EXPORT_SHAPE[0]}x{EXPORT_SHAPE[1]} L4 lossless/medium x crossed/left_top: 8 "
+          f"programs of {min(sizes)}-{max(sizes)} B in {export_s:.3f} s; loaded and run in a "
+          f"fresh process ({load_s:.3f} s: {load_s - result['worker_s']:.3f} s its start and "
+          f"imports, 8 loads {result['loads_s']:.3f} s, 4 encode+decode runs "
+          f"{result['runs_s']:.3f} s), bit-identical, K1 and K2 once each; first encode_plane "
+          f"of a cold process {result['cold_first_s'] * 1e3:.3f} ms, after "
+          f"compile({EXPORT_SHAPE}) ({result['compile_s'] * 1e3:.3f} ms) "
+          f"{result['after_compile_first_s'] * 1e3:.3f} ms (host clock) [{card}]")
+    return launches
+
+
+def dryrun_path(card: str) -> None:
+    """Phase 11: ``dryrun_multichip(4)``: four places on the one card."""
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(4, [torch.device(DEVICE)] * 4)
+    forward, (example,) = dryrun.entry(DEVICE)
+    grid, _ = forward(example)
+    _check(grid.device.type == DEVICE, "entry()'s forward left the card")
+    print(f"dryrun_multichip(4) on 4 places of {DEVICE} and entry(): passed in "
+          f"{time.perf_counter() - t0:.3f} s (host clock) [{card}]")
+
+
+def serving_path(card: str) -> None:
+    """Phase 12: ``python -m rustyhgi_tpu_torch.examples.serving`` on the
+    card, its seven sections, every check printing True."""
+    t0 = time.perf_counter()
+    rc, text = _captured(lambda: serving.main(["--device", DEVICE]))
+    took = time.perf_counter() - t0
+    print(text.rstrip())
+    sections = [line for line in text.splitlines() if line.startswith("=== ")]
+    _check(rc == 0 and len(sections) == 7 and "False" not in text and text.count("True") == 5
+           and "max err 20 (bound 20)" in text, "the serving example failed a section")
+    print(f"serving example: 7 sections in {took:.3f} s (host clock) [{card}]")
+
+
 def _captured(fn):
     """``fn()`` with its standard output caught; returns (result, text)."""
     out = io.StringIO()
@@ -1049,7 +1380,7 @@ def _captured(fn):
 
 
 def bench_tier(card: str) -> tuple:
-    """Phase 9: the probe, the CLI's bench and the bench through their
+    """Phase 13: the probe, the CLI's bench and the bench through their
     entry points, each with the launch counts set to 0 just before it and
     read just after; returns the probe's rows and each path's launches."""
     paths = {}
@@ -1419,6 +1750,8 @@ def x1_scaling(rng, card: str, chain: dict) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--export-worker"]:
+        return _export_worker(sys.argv[2])
     started = time.perf_counter()
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -1512,6 +1845,43 @@ def main() -> int:
     for kernel in ("K1", "X1", "K2"):
         _check(tiled_launches[kernel] > 0, f"the tiled path never launched {kernel}")
 
+    # Every launch of these phases in this process is recorded, and held
+    # against the plain version after them; the worker processes' shapes
+    # are phase 2's ([32, 512, 512] a rank, 1080x1920 an exported program).
+    new_launches = {}
+    recorder = _Recorder()
+    try:
+        for phase, run, kernels in (
+                ("multihost", lambda: multihost_path(np.random.default_rng([SEED, 14]), card),
+                 ("K1", "K2")),
+                ("export", lambda: export_path(np.random.default_rng([SEED, 15]), card),
+                 ("K1", "K2")),
+                ("dryrun", lambda: dryrun_path(card), ("K1", "K2", "K3", "K5", "X1")),
+                ("serving", lambda: serving_path(card), ("K1", "K2", "K3", "K5", "X1"))):
+            t0 = time.perf_counter()
+            seen = dict(recorder.seen)
+            _reset_launches()
+            with recorder:
+                elsewhere = run() or {}  # the calls its worker processes made
+            here = _read_launches()
+            got = {k: here[k] + elsewhere.get(k, 0) for k in KERNELS}
+            new_launches[phase] = got
+            print(f"phase {phase}: launches {got} (in worker processes {elsewhere}) in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for kernel in kernels:
+                _check(got[kernel] > 0, f"the {phase} path never launched {kernel}")
+            for kernel in LAUNCHERS:
+                _check(recorder.seen[kernel] - seen[kernel] == here[kernel],
+                       f"the {phase} path launched {kernel} past the recorder")
+        new_worst, shapes = recorder.replay()
+    finally:
+        recorder.close()
+    for kernel, err in new_worst.items():
+        worst[kernel] = max(worst[kernel], err)
+    print(f"phase new-paths-vs-plain: the {len(recorder.calls)} distinct launches of phases 9-12 "
+          f"in this process replayed, bit-identical (tolerance: exact), max_abs_err "
+          f"{new_worst}; shapes {shapes}")
+
     rates, bench_paths = bench_tier(card)
     launches["K8"] = bench_paths["vpucal"]["K8"]
     mhz = _max_sm_mhz()
@@ -1553,6 +1923,8 @@ def main() -> int:
         record["device_launches"] = row["device_launches"]
         record["launches_color"] = color_launches[kernel]
         record["launches_tiled"] = tiled_launches[kernel]
+        for phase, got in new_launches.items():
+            record[f"launches_{phase}"] = got[kernel]
         if kernel == "X1":  # the histogram stage against torch.bincount; the chain bound
             record["histogram_device_ms"] = row["histogram_device_ms"]
             record["bincount_ms"] = row["bincount_ms"]

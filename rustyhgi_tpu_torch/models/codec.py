@@ -25,16 +25,22 @@ kernels K3, K4 and K5).  :meth:`HGICodec.write_fast` and
 :meth:`HGICodec.write_fast_batch` also entropy-code on the device: K1's
 grid goes straight into the device rANS (X1), and only coded bytes cross
 to the host.
+
+Serving: :meth:`HGICodec.compile` warms the kernels up for given shapes,
+and :meth:`HGICodec.export_encoder` / :meth:`HGICodec.export_decoder`
+ship K1 / K2 as ``torch.export`` programs (the ``rustyhgi::`` operators
+of :mod:`..ops.library`) that :func:`load_exported` loads.
 """
 
 from __future__ import annotations
 
+import io
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..ops import cuda_codec, pyramid, tpurans
+from ..ops import _build, cuda_codec, library, pyramid, tpurans
 from ..ops.predictors import check_predictor, predictor_name_for_tag, predictor_tag
 from ..ops.quantizers import (
     QuantizationLevel,
@@ -45,9 +51,43 @@ from ..ops.quantizers import (
 from ..utils.container import Archive, Metadata, frame_rans_tpu, write_archive, write_thgi
 from ..utils.profiling import codec_metrics
 
-__all__ = ["HGICodec", "CodecMetrics"]
+__all__ = ["HGICodec", "CodecMetrics", "load_exported"]
 
 _BACKENDS = ("auto", "cuda", "torch")
+
+
+def load_exported(blob: bytes):
+    """Load a serialized codec stage (see :meth:`HGICodec.export_encoder`).
+
+    Returns the program as a callable module: ``enc(image)`` gives
+    ``(grid, recon)``, ``dec(grid)`` the image, on the device it was
+    exported on, through the ``rustyhgi::`` operators.
+    """
+    return torch.export.load(io.BytesIO(blob)).module()
+
+
+class _Encoder(torch.nn.Module):
+    """K1 at one depth, predictor and table, for ``torch.export``."""
+
+    def __init__(self, levels: int, predictor: str, table: Optional[torch.Tensor]):
+        super().__init__()
+        self.levels, self.predictor, self.lossless = levels, predictor, table is None
+        table = torch.zeros(256, dtype=torch.uint8) if table is None else table.to(torch.uint8)
+        self.register_buffer("table", table)
+
+    def forward(self, image: torch.Tensor):
+        return library.encode_plane(image, self.table, self.levels, self.predictor, self.lossless)
+
+
+class _Decoder(torch.nn.Module):
+    """K2 at one depth and predictor, for ``torch.export``."""
+
+    def __init__(self, levels: int, predictor: str):
+        super().__init__()
+        self.levels, self.predictor = levels, predictor
+
+    def forward(self, grid: torch.Tensor):
+        return library.decode_plane(grid, self.levels, self.predictor)
 
 
 class CodecMetrics(dict):
@@ -167,6 +207,52 @@ class HGICodec:
         """uint8 [H, W] (or [B, H, W]) residual grid -> image on the device."""
         g = self._to_device(grid, "grid")
         return self._engine.decode_plane(g, self.levels, self.predictor)
+
+    # -- serving: warm-up and shipped programs -------------------------------
+
+    def compile(self, *shapes: Tuple[int, int]) -> "HGICodec":
+        """Warm-up for the given shapes, so that no request pays it.
+
+        On ``cuda`` with the kernels it loads the kernel library (built at
+        first use), converts the quantizer table for the kernels once, and
+        runs one :meth:`encode_plane` and one :meth:`decode_plane` on zeros
+        of each shape, then synchronizes; on the CPU it runs the plain
+        version once a shape.  Returns self.
+        """
+        if self.device.type == "cuda" and self._engine is cuda_codec:
+            _build.load()
+            if self._table is not None:
+                cuda_codec.table_arg(self._table)
+        for shape in shapes:
+            zero = torch.zeros(tuple(shape), dtype=torch.uint8, device=self.device)
+            self.decode_plane(self.encode_plane(zero)[0])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def _export(self, module: torch.nn.Module, shape: Tuple[int, int]) -> bytes:
+        example = torch.zeros(tuple(shape), dtype=torch.uint8, device=self.device)
+        program = torch.export.export(module.to(self.device), (example,))
+        program.example_inputs = None  # the zeros traced with are not part of the program
+        buf = io.BytesIO()
+        torch.export.save(program, buf)
+        return buf.getvalue()
+
+    def export_encoder(self, shape: Tuple[int, int]) -> bytes:
+        """Serialize the shape-specialized encoder as a portable artifact.
+
+        Returns ``torch.export`` bytes of a program that holds one
+        ``rustyhgi::encode_plane`` call (K1 on ``cuda``) with this codec's
+        depth, predictor and table, on this codec's device; any process
+        with this package can :func:`load_exported` and call it.  Runs the
+        kernels whatever the codec's ``backend``.
+        """
+        return self._export(_Encoder(self.levels, self.predictor, self._table), shape)
+
+    def export_decoder(self, shape: Tuple[int, int]) -> bytes:
+        """Serialize the shape-specialized decoder (see export_encoder):
+        one ``rustyhgi::decode_plane`` call, K2 on ``cuda``."""
+        return self._export(_Decoder(self.levels, self.predictor), shape)
 
     # -- subband layout -------------------------------------------------------
 

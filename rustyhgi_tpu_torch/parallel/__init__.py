@@ -1,9 +1,9 @@
-"""The batch split over devices and the tiling of large planes.
+"""The batch split over devices, the tiling of large planes, and the
+multi-process tiled tier.
 
-Counterpart of ``rustyhgi_tpu/parallel``, in one process.  Its
-multi-process tier (``MultiHostConfig``, ``encode_tiled_multihost``,
-...) is not ported yet: each of those names raises NotImplementedError
-naming the ROADMAP item that ports it.
+Counterpart of ``rustyhgi_tpu/parallel``: :mod:`.mesh` and :mod:`.sharded`
+split a batch over the devices of one process; :mod:`.multihost` splits a
+tiled plane over the processes of a ``torch.distributed`` group.
 """
 
 from .mesh import DATA_AXIS, TILE_AXIS, Mesh, make_mesh
@@ -18,23 +18,15 @@ from .sharded import (
     untile_plane,
 )
 
-
-def _multihost(name: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP Queue 1 item 11b: parallel/multihost.py "
-            "on torch.distributed)"
-        )
-
-    refuse.__name__ = refuse.__qualname__ = name
-    return refuse
-
-
-MultiHostConfig = _multihost("MultiHostConfig")
-TiledEncodeResult = _multihost("TiledEncodeResult")
-encode_tiled_multihost = _multihost("encode_tiled_multihost")
-decode_tiled_multihost = _multihost("decode_tiled_multihost")
-write_thgit_multihost = _multihost("write_thgit_multihost")
+from .multihost import (
+    MultiHostConfig,
+    TileCodingError,
+    TiledEncodeResult,
+    decode_tiled_multihost,
+    encode_tiled_multihost,
+    initialize,
+    write_thgit_multihost,
+)
 
 __all__ = [
     "DATA_AXIS",
@@ -54,4 +46,6 @@ __all__ = [
     "encode_tiled_multihost",
     "decode_tiled_multihost",
     "write_thgit_multihost",
+    "TileCodingError",
+    "initialize",
 ]

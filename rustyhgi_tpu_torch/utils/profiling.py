@@ -6,7 +6,8 @@ Counterpart of ``rustyhgi_tpu/utils/profiling.py``:
   kernels and copies on ``cuda``) around any codec region and writes it
   into a directory as a Chrome trace (Perfetto, ``chrome://tracing``);
 * :class:`StageTimer` accumulates named stage times and derives rates,
-  with the JAX class's API, report and printout;
+  with the JAX class's API, report and printout; :func:`stage_clock`
+  times named functions of other modules while a block runs;
 * :func:`codec_metrics` and :func:`psnr`, the metric set of a roundtrip.
 """
 
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-__all__ = ["trace", "StageTimer", "codec_metrics", "psnr"]
+__all__ = ["trace", "StageTimer", "stage_clock", "codec_metrics", "psnr"]
 
 
 @contextlib.contextmanager
@@ -105,6 +106,34 @@ class StageTimer:
             )
             lines.append(f"{name:<24} {e['seconds'] * 1e3:9.2f} ms{rate}")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def stage_clock(targets: Dict[str, tuple]):
+    """Host seconds spent in each of ``targets`` ({label: (module,
+    attribute)}) while the block runs: each attribute is wrapped in a
+    timer, then put back.  Code that looks the names up when it calls
+    them (a module's own globals, or names imported inside a function)
+    passes through the timers.  Yields ``{label: seconds}``."""
+    spent = {label: 0.0 for label in targets}
+    saved = {label: getattr(module, attr) for label, (module, attr) in targets.items()}
+
+    def timed(label, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[label] += time.perf_counter() - t0
+        return call
+
+    for label, (module, attr) in targets.items():
+        setattr(module, attr, timed(label, saved[label]))
+    try:
+        yield spent
+    finally:
+        for label, (module, attr) in targets.items():
+            setattr(module, attr, saved[label])
 
 
 def psnr(original: np.ndarray, decoded: np.ndarray) -> float:

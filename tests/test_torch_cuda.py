@@ -579,3 +579,49 @@ def test_batch_split_on_the_card_matches_the_cpu(cuda, preset):
         assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
     decoded = decode_batch_sharded(on_card[0], 4, mesh=make_mesh())
     assert torch.equal(decoded, on_card[1])
+
+
+@pytest.mark.parametrize("preset", ["lossless", "medium"])
+@pytest.mark.parametrize("pred", ["crossed", "left_top"])
+def test_custom_ops_on_the_card_match_the_plain_version(cuda, preset, pred):
+    from rustyhgi_tpu_torch.ops import library
+
+    img = torch.from_numpy(_image((2, 67, 131))).to(cuda)
+    table = _table(QuantizationLevel.parse(preset))
+    lossless = table is None
+    table_u8 = torch.zeros(256, dtype=torch.uint8) if lossless else table.to(torch.uint8)
+    before = cuda_codec.encode_launches, cuda_codec.decode_launches
+    grid, recon = library.encode_plane(img, table_u8.to(cuda), 4, pred, lossless)
+    dec = library.decode_plane(grid, 4, pred)
+    assert (cuda_codec.encode_launches, cuda_codec.decode_launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    want_grid, want_recon = pyramid.encode_plane(img.cpu(), 4, table, pred)
+    assert grid.device.type == "cuda"
+    assert torch.equal(grid.cpu(), want_grid) and torch.equal(recon.cpu(), want_recon)
+    assert torch.equal(dec.cpu(), pyramid.decode_plane(want_grid, 4, pred))
+
+
+@pytest.mark.parametrize("preset", ["lossless", "medium"])
+def test_export_on_the_card_round_trips(cuda, preset):
+    from rustyhgi_tpu_torch.models.codec import load_exported
+
+    codec = HGICodec(4, preset, device=cuda).compile((90, 140))
+    enc = load_exported(codec.export_encoder((90, 140)))
+    dec = load_exported(codec.export_decoder((90, 140)))
+    img = torch.from_numpy(_image((90, 140))).to(cuda)
+    before = cuda_codec.encode_launches
+    grid, recon = enc(img)
+    assert cuda_codec.encode_launches == before + 1
+    want_grid, want_recon = codec.encode_plane(img)
+    assert grid.device.type == "cuda"
+    assert torch.equal(grid, want_grid) and torch.equal(recon, want_recon)
+    assert torch.equal(dec(grid), recon)
+
+
+def test_dryrun_on_the_card(cuda):
+    from rustyhgi_tpu_torch.dryrun import dryrun_multichip, entry
+
+    dryrun_multichip(4)
+    forward, (example,) = entry()
+    grid, _ = forward(example)
+    assert grid.device.type == "cuda"

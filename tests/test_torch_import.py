@@ -18,13 +18,16 @@ MODULES = [
     "rustyhgi_tpu_torch.__main__",
     "rustyhgi_tpu_torch.bench",
     "rustyhgi_tpu_torch.cli",
+    "rustyhgi_tpu_torch.dryrun",
     "rustyhgi_tpu_torch.dyadic",
+    "rustyhgi_tpu_torch.examples.serving",
     "rustyhgi_tpu_torch.models.codec",
     "rustyhgi_tpu_torch.ops._build",
     "rustyhgi_tpu_torch.ops.bitpack",
     "rustyhgi_tpu_torch.ops.ctxcoder",
     "rustyhgi_tpu_torch.ops.cuda_codec",
     "rustyhgi_tpu_torch.ops.entropy",
+    "rustyhgi_tpu_torch.ops.library",
     "rustyhgi_tpu_torch.ops.native",
     "rustyhgi_tpu_torch.ops.predictors",
     "rustyhgi_tpu_torch.ops.pyramid",
@@ -33,9 +36,11 @@ MODULES = [
     "rustyhgi_tpu_torch.ops.vpucal",
     "rustyhgi_tpu_torch.parallel",
     "rustyhgi_tpu_torch.parallel.mesh",
+    "rustyhgi_tpu_torch.parallel.multihost",
     "rustyhgi_tpu_torch.parallel.sharded",
     "rustyhgi_tpu_torch.tools",
     "rustyhgi_tpu_torch.tools.chip_probe",
+    "rustyhgi_tpu_torch.tools.multihost_run",
     "rustyhgi_tpu_torch.utils.benchsuite",
     "rustyhgi_tpu_torch.utils.color",
     "rustyhgi_tpu_torch.utils.container",
@@ -70,7 +75,10 @@ def test_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize(
-    "module", ["rustyhgi_tpu_torch.utils.color", "rustyhgi_tpu_torch.parallel"]
+    "module",
+    ["rustyhgi_tpu_torch.utils.color", "rustyhgi_tpu_torch.parallel",
+     "rustyhgi_tpu_torch.parallel.multihost", "rustyhgi_tpu_torch.dryrun",
+     "rustyhgi_tpu_torch.ops.library", "rustyhgi_tpu_torch.models.codec"],
 )
 def test_color_and_parallel_load_neither_jax_nor_the_jax_package(module):
     code = (
@@ -87,14 +95,21 @@ def test_color_and_parallel_load_neither_jax_nor_the_jax_package(module):
     assert out.stdout.strip() == "[]"
 
 
-def test_multihost_names_refuse_naming_their_roadmap_item():
+def test_multihost_names_are_ported_and_cover_jax_all():
+    # The multi-process tier is ported: no name of the package refuses any
+    # more, and its __all__ covers the JAX package's.
+    import rustyhgi_tpu.parallel as jpar
     import rustyhgi_tpu_torch.parallel as par
+    from rustyhgi_tpu_torch.parallel import multihost
 
+    assert set(jpar.__all__) <= set(par.__all__)
+    for name in par.__all__:
+        assert hasattr(par, name), name
     for name in ("MultiHostConfig", "TiledEncodeResult", "encode_tiled_multihost",
-                 "decode_tiled_multihost", "write_thgit_multihost"):
-        assert name in par.__all__
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11b"):
-            getattr(par, name)()
+                 "decode_tiled_multihost", "write_thgit_multihost", "TileCodingError",
+                 "initialize"):
+        assert getattr(par, name) is getattr(multihost, name)
+    assert par.MultiHostConfig().num_processes is None
 
 
 @pytest.mark.parametrize(

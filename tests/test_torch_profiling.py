@@ -84,3 +84,16 @@ def test_trace_on_cuda_without_a_card_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         with profiling.trace(str(tmp_path), device="cuda"):
             pass
+
+
+def test_stage_clock_times_named_functions_and_puts_them_back():
+    import types
+
+    from rustyhgi_tpu_torch.utils.profiling import stage_clock
+
+    mod = types.SimpleNamespace(slow=lambda x: time.sleep(0.01) or x + 1, fast=lambda: 0)
+    originals = (mod.slow, mod.fast)
+    with stage_clock({"slow": (mod, "slow"), "fast": (mod, "fast")}) as spent:
+        assert mod.slow(1) == 2 and mod.slow(2) == 3
+    assert (mod.slow, mod.fast) == originals
+    assert spent["slow"] >= 0.02 and spent["fast"] == 0.0
