@@ -87,14 +87,29 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    ``entry()``'s forward;
 12. run the worked examples (``rustyhgi_tpu_torch.examples.serving``)
    on the card, every section's check true.
-   Each of the phases 4-12 runs with the launch counts set to 0 just
+   Each of the phases 4-13 runs with the launch counts set to 0 just
    before it and read just after (the worker processes' calls added),
    and fails unless it launched its kernels.  In phases 9-12 every
    launch of K1-K5 and X1 in this process is recorded (the count must
    equal the launch counter's), and after them each distinct launch is
    made again on a copy of its inputs and held bit for bit against the
    plain version; the worker processes launch at phase 2's shapes;
-13. drive the bench tier through its entry points, each run with the
+13. hold the CLI's host backends against the kernels and the kernels
+   against the oracle: LENA, recovered by ``decode --backend native`` of
+   its lossless golden, encoded under ``--backend torch``, ``oracle``
+   and ``native`` at lossless and medium to the manifest's ``.hgi``
+   digests, the kernels' archive decoded to the manifest's plane under
+   each, ``test -q lossless`` printing and writing the same under all
+   three; ``test --backend native`` against ``--backend torch`` at
+   1080x1920, lossless and medium (``--format thgi``: the same bytes,
+   plane and printout, the host seconds of both side by side); then
+   ``chip_probe.validate`` on the JAX probe's three small cases (517x1024
+   L3 lossless, 300x500 L4 medium, 256x384 L5 high left_top): K1, K2, K3,
+   K5, the plain version and the C++ stand-in against the oracle, every
+   column OK (the stand-in's n/a for left_top, which it does not code).
+   The host backends launch no kernel; the phase must launch K1, K2, K3
+   and K5;
+14. drive the bench tier through its entry points, each run with the
    launch counts set to 0 just before it and read just after: the probe
    ``python -m rustyhgi_tpu_torch.tools.chip_probe vpucal`` (K8; its
    rates, and the SASS instructions each chain issues a round), the
@@ -103,7 +118,7 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    are printed.  The bench runs its host-coder group (DEFLATE-9 included)
    on the whole batch: on an H100 the whole bench takes about 15 s, well
    short of doubling this script's time;
-14. time each kernel and its plain version with CUDA events, and read
+15. time each kernel and its plain version with CUDA events, and read
    the kernel's device time alone, and the device kernels one call
    launches, with ``torch.profiler`` (lossless K1 must be one launch at
    depths 4 and 8, lossy K1 one at depth 4, K2 and K5 one at depth 4 and
@@ -122,7 +137,7 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    higher.  X1 also has a chain bound: its rows T times the dependent
    chain of its lanes loop, in SASS instructions a row (read with
    ``cuobjdump -sass``), times 4 cycles, over the SM clock;
-15. run the probe's ``sweep`` (lossy K1's and K3's tile and fine depth,
+16. run the probe's ``sweep`` (lossy K1's and K3's tile and fine depth,
    K2's and K5's tile and fine depth with fine 0 for one launch a level,
    K5's previews, the decodes' tile at more plane counts and sizes, X1's
    lanes a block) in a process of its own, whose traces hold every record,
@@ -1371,6 +1386,124 @@ def serving_path(card: str) -> None:
     print(f"serving example: 7 sections in {took:.3f} s (host clock) [{card}]")
 
 
+# The backends phase's full-width legs write .thgi: a .hgi's DEFLATE-9 of
+# a 1080x1920 medium grid takes about 10 s on the host (PERF.md section 5).
+BACKENDS_SHAPE = (1080, 1920)
+BACKENDS_FORMAT = "thgi"
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def backends_path(rng, card: str) -> None:
+    """Phase 13: the CLI's ``--backend oracle|native`` against the kernels
+    (``--backend torch``), then ``chip_probe validate`` on its three small
+    cases in this process.  LENA, recovered by ``decode --backend native``
+    of its committed lossless golden: at lossless and medium, ``encode``
+    under each backend writes the manifest's ``.hgi`` bytes, ``decode``
+    of the kernels' archive under each backend the same plane, and ``test
+    -q lossless`` prints the same four lines and writes the same archive
+    under all three.  At 1080x1920 on the seeded smooth plane, ``test
+    --backend native`` and ``--backend torch`` at lossless and medium
+    write the same archive, PNG and printout, and their host seconds are
+    printed side by side: the archive write, the PNG load and save, and
+    the rest, which holds the coding (the copies and K1 and K2, or the
+    C++ stand-in, timed apart).  The host backends launch no kernel."""
+    t0 = time.perf_counter()
+    none = {k: 0 for k in KERNELS}
+    dev = ["--device", DEVICE]
+    with open(os.path.join(GOLDEN, "baseline", "manifest.json")) as f:
+        manifest = json.load(f)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            _cli(["decode", "-i", os.path.join(GOLDEN, "baseline", "lena_l4_lossless.hgi"),
+                  "-o", "lena.png", "--backend", "native"], none)
+            lena = load_luma("lena.png")
+            _check(_sha(lena.tobytes()) == manifest["lena_l4_lossless"]["input_sha256"],
+                   "decode --backend native of the LENA golden gave another plane")
+            for preset in ("lossless", "medium"):
+                entry = manifest[f"lena_l4_{preset}"]
+                for backend in ("torch", "oracle", "native"):
+                    extra, want = (dev, {"K1": 1}) if backend == "torch" else ([], none)
+                    _cli(["encode", "-i", "lena.png", "-o", f"{backend}.hgi", "-q", preset,
+                          "--backend", backend, *extra], want)
+                    blob = _read(f"{backend}.hgi")
+                    _check(_sha(blob) == entry["hgi_sha256"],
+                           f"LENA {preset} encode --backend {backend}: .hgi digest "
+                           f"{_sha(blob)[:8]} != manifest {entry['hgi_sha256'][:8]}")
+                    extra, want = (dev, {"K2": 1}) if backend == "torch" else ([], none)
+                    _cli(["decode", "-i", "torch.hgi", "-o", f"{backend}.png",
+                          "--backend", backend, *extra], want)
+                    _check(_sha(load_luma(f"{backend}.png").tobytes()) == entry["decoded_sha256"],
+                           f"LENA {preset} decode --backend {backend} differs from the manifest")
+            shown = {}
+            for backend in ("torch", "oracle", "native"):
+                extra, want = (dev, {"K1": 1, "K2": 1}) if backend == "torch" else ([], none)
+                _, shown[backend] = _captured(lambda: _cli(
+                    ["test", "lena.png", "-q", "lossless", "-s", f"_{backend}",
+                     "--backend", backend, *extra], want))
+                _check(shown[backend] == shown["torch"]
+                       and _read(f"lena_{backend}.hgi") == _read("lena_torch.hgi"),
+                       f"LENA test --backend {backend} printed or wrote other than torch")
+            print(f"backends LENA: encode under torch, oracle and native == the manifest's "
+                  f".hgi digests (lossless, medium); decode of the kernels' archive the same "
+                  f"plane under each; test -q lossless printed {shown['torch'].splitlines()} "
+                  f"under all three")
+
+            save_gray("full.png", _natural_plane(rng, BACKENDS_SHAPE))
+            for preset in ("lossless", "medium"):
+                runs = {}
+                for backend in ("torch", "native"):
+                    extra, want = (dev, {"K1": 1, "K2": 1}) if backend == "torch" else ([], none)
+                    with stage_clock({"load": (cli, "load_luma"),
+                                      "native_encode": (cli, "native_encode"),
+                                      "native_decode": (cli, "native_decode"),
+                                      "write_archive": (cli, "write_archive"),
+                                      "save": (cli, "save_gray")}) as st:
+                        (took, _), text = _captured(lambda: _cli(
+                            ["test", "full.png", "-q", preset, "--format", BACKENDS_FORMAT,
+                             "-s", f"_{backend}", "--backend", backend, *extra], want))
+                    runs[backend] = (took, text, dict(st))
+                _check(runs["native"][1] == runs["torch"][1],
+                       f"{preset} test --backend native printed other than torch")
+                blob = _read(f"full_torch.{BACKENDS_FORMAT}")
+                _check(_read(f"full_native.{BACKENDS_FORMAT}") == blob,
+                       f"1080x1920 {preset} test --backend native wrote other bytes than torch")
+                _check(np.array_equal(load_luma("full_native.png"), load_luma("full_torch.png")),
+                       f"1080x1920 {preset} test --backend native decoded another plane")
+                parts = []
+                for backend, what in (("torch", "H2D, K1, K2, D2H"),
+                                      ("native", "the stand-in's encode {native_encode:.4f} + "
+                                                 "decode {native_decode:.4f}")):
+                    took, _, st = runs[backend]
+                    rest = took - st["write_archive"] - st["load"] - st["save"]
+                    parts.append(
+                        f"{backend} {took:.3f} s = write_archive {st['write_archive']:.3f} + PNG "
+                        f"load {st['load']:.3f} + save {st['save']:.3f} + the rest {rest:.4f} "
+                        f"({what.format(**st)}, the SD)")
+                print(f"backends {'x'.join(map(str, BACKENDS_SHAPE))} {preset} test --format "
+                      f"{BACKENDS_FORMAT}: same bytes ({len(blob)} B) and printout; "
+                      f"{' | '.join(parts)} (host clock) [{card}]")
+        finally:
+            os.chdir(cwd)
+    cli_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    result = chip_probe.validate(chip_probe.VALIDATE_CASES[2:])
+    for case, row in result["validate"].items():
+        for column, ok in row.items():
+            _check(ok or (ok is None and column == "native" and case.endswith("left_top")),
+                   f"chip_probe validate {case}: {column} is not OK")
+    for kernel in ("K1", "K2", "K3", "K5"):
+        _check(result["launches"][kernel] > 0, f"chip_probe validate never launched {kernel}")
+    print(f"backends: CLI legs {cli_s:.1f} s, validate {time.perf_counter() - t1:.1f} s "
+          f"(host clock) [{card}]")
+
+
 def _captured(fn):
     """``fn()`` with its standard output caught; returns (result, text)."""
     out = io.StringIO()
@@ -1380,7 +1513,7 @@ def _captured(fn):
 
 
 def bench_tier(card: str) -> tuple:
-    """Phase 13: the probe, the CLI's bench and the bench through their
+    """Phase 14: the probe, the CLI's bench and the bench through their
     entry points, each with the launch counts set to 0 just before it and
     read just after; returns the probe's rows and each path's launches."""
     paths = {}
@@ -1475,7 +1608,7 @@ def _device_trace(fn) -> tuple:
 
 
 def timing_inputs() -> dict:
-    """Phase 10's inputs, made once from a seed of their own: for 1x and
+    """Phase 15's inputs, made once from a seed of their own: for 1x and
     8x1080x1920 and each preset, ``(plane, table, K1's grid, K3's anchors,
     K3's quads)``."""
     rng = np.random.default_rng([SEED, 9])
@@ -1496,9 +1629,9 @@ EARLY = ("K2", "K3", "K4", "K5")
 
 
 def kernel_device_times(inputs: dict, card: str) -> dict:
-    """Phase 10, early, while the profiler's traces hold every record: the
+    """Phase 15, early, while the profiler's traces hold every record: the
     device time and device launches a call of K2, K3 (and K3 with no recon
-    wanted, as the bench calls it), K4 and K5, on phase 10's own planes,
+    wanted, as the bench calls it), K4 and K5, on phase 15's own planes,
     grids and quads; ``{(kernel, shape, preset): (ms, launches)}``."""
     times = {}
     for (shape, preset), (img, table, grid, anchors, subbands) in inputs.items():
@@ -1514,7 +1647,7 @@ def kernel_device_times(inputs: dict, card: str) -> dict:
             _check(dk is not None, f"{what}: the trace dropped records, no device time")
             times[kernel, shape, preset] = (dk, launched)
             print(f"device {what}: {dk:.4f} ms, {launched:g} device launch(es) a call, "
-                  f"torch.profiler mean of {REPEATS} calls on phase 10's inputs [{card}]")
+                  f"torch.profiler mean of {REPEATS} calls on phase 15's inputs [{card}]")
     return times
 
 
@@ -1546,7 +1679,7 @@ def _shown(d, e) -> str:
 
 
 def timings(inputs: dict, card: str, peak_ops: float, early: dict) -> dict:
-    """Phase 10: kernel and plain version, same inputs, same call.  The
+    """Phase 15: kernel and plain version, same inputs, same call.  The
     device times and launches of K2-K5 come from ``early``
     (:func:`kernel_device_times`, on the same inputs)."""
     rows = {}
@@ -1629,7 +1762,7 @@ def timings(inputs: dict, card: str, peak_ops: float, early: dict) -> dict:
 
 
 def decode_launches(rng, card: str) -> None:
-    """Phase 10, K2's and K5's device launches a call at 1080x1920: one at
+    """Phase 15, K2's and K5's device launches a call at 1080x1920: one at
     L4 and for K5's preview at upto 2, 1 + 8 - DECODE_FINE_LEVELS at L8."""
     img = torch.from_numpy(_natural_plane(rng, (1080, 1920))).to(DEVICE)
     fine = cuda_codec.DECODE_FINE_LEVELS
@@ -1654,7 +1787,7 @@ def decode_launches(rng, card: str) -> None:
 
 
 def k1_launches(rng, card: str) -> None:
-    """Phase 10, K1's device launches a call at 1080x1920: one for lossless
+    """Phase 15, K1's device launches a call at 1080x1920: one for lossless
     at any depth, one for lossy up to FINE_LEVELS, one more per coarser
     level."""
     img = torch.from_numpy(_natural_plane(rng, (1080, 1920))).to(DEVICE)
@@ -1672,7 +1805,7 @@ def k1_launches(rng, card: str) -> None:
 
 
 def subband_launches(rng, card: str) -> None:
-    """Phase 10, K3's and K4's device launches a call at 1080x1920: K3 one
+    """Phase 15, K3's and K4's device launches a call at 1080x1920: K3 one
     when lossless at any depth, one when lossy up to FINE_LEVELS and one
     more per coarser level, with or without recon; K4 one."""
     img = torch.from_numpy(_natural_plane(rng, (1080, 1920))).to(DEVICE)
@@ -1697,7 +1830,7 @@ def subband_launches(rng, card: str) -> None:
 
 
 def new_path_shapes(rng, card: str) -> None:
-    """Phase 10, the shapes the color and tiled paths give the kernels:
+    """Phase 15, the shapes the color and tiled paths give the kernels:
     device ms (torch.profiler) and device launches a call of K1 and K2 at
     [3, 1080, 1920] (color's three planes), K1, X1 and K2 at [32, 512,
     512] (a chunk of ``encode-tiled --fast``) and K2 at [256, 512, 512]
@@ -1725,7 +1858,7 @@ def new_path_shapes(rng, card: str) -> None:
 
 
 def x1_scaling(rng, card: str, chain: dict) -> None:
-    """Phase 10, X1 alone: its device time against its rows T and its
+    """Phase 15, X1 alone: its device time against its rows T and its
     threads B*L at medium, beside its chain bound.  A lane codes its T
     rows in turn, so while the card has idle room the time follows T, not
     the pixels."""
@@ -1882,6 +2015,14 @@ def main() -> int:
           f"in this process replayed, bit-identical (tolerance: exact), max_abs_err "
           f"{new_worst}; shapes {shapes}")
 
+    t0 = time.perf_counter()
+    _reset_launches()
+    backends_path(np.random.default_rng([SEED, 16]), card)
+    backends_launches = _read_launches()
+    print(f"phase backends: launches {backends_launches} in {time.perf_counter() - t0:.1f} s")
+    for kernel in ("K1", "K2", "K3", "K5"):
+        _check(backends_launches[kernel] > 0, f"the backends phase never launched {kernel}")
+
     rates, bench_paths = bench_tier(card)
     launches["K8"] = bench_paths["vpucal"]["K8"]
     mhz = _max_sm_mhz()
@@ -1925,6 +2066,7 @@ def main() -> int:
         record["launches_tiled"] = tiled_launches[kernel]
         for phase, got in new_launches.items():
             record[f"launches_{phase}"] = got[kernel]
+        record["launches_backends"] = backends_launches[kernel]
         if kernel == "X1":  # the histogram stage against torch.bincount; the chain bound
             record["histogram_device_ms"] = row["histogram_device_ms"]
             record["bincount_ms"] = row["bincount_ms"]

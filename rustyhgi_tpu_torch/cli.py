@@ -7,6 +7,17 @@ plus ``--format hgi|thgi``, ``decode --preview N``, ``--engine
 auto|cuda|torch`` (the codec's backend; the engines are bit-identical)
 and ``--device`` (default ``cuda``).
 
+``encode``, ``decode`` and ``test`` take ``--backend torch|oracle|native``
+where the JAX CLI takes ``jax|oracle|native``, routed branch for branch
+as there: ``torch`` is :class:`HGICodec` on ``--engine``/``--device``;
+``oracle`` the per-pixel NumPy model (:mod:`.oracle`); ``native`` the
+scalar C++ stand-in (``native/``, built with ``make -C native``), which
+codes Crossed only, so ``left_top`` takes the oracle.  ``oracle`` and
+``native`` run on the host and read neither ``--engine`` nor
+``--device``, except where the JAX CLI too goes through the codec:
+``--color``, ``decode`` of a ``.thgic`` and ``decode --preview``.  A
+``native`` run without the library raises.
+
 ``encode --format thgi --fast`` writes ``HGICodec.write_fast``: the
 grid entropy-coded on the device (codec 7), only coded bytes copied to
 the host.  As in the JAX CLI, ``--fast`` with ``--format hgi`` writes the
@@ -41,6 +52,7 @@ Usage::
     python -m rustyhgi_tpu_torch decode -i out.thgi -o roundtrip.png
     python -m rustyhgi_tpu_torch decode -i out.thgi -o preview.png --preview 2
     python -m rustyhgi_tpu_torch test img.png -l 4 -q lossless --device cuda
+    python -m rustyhgi_tpu_torch test img.png -l 4 -q lossless --backend native
     python -m rustyhgi_tpu_torch encode -i rgb.png -o out.thgic --color --format thgi
     python -m rustyhgi_tpu_torch encode-tiled -i huge.png -o huge.thgit --tile 512 --format thgi --fast
     python -m rustyhgi_tpu_torch decode-tiled -i huge.thgit -o huge_roundtrip.png
@@ -56,6 +68,7 @@ import sys
 import numpy as np
 
 from .models.codec import HGICodec
+from .ops.native import native_decode, native_encode
 from .ops.predictors import predictor_name_for_tag
 from .ops.quantizers import QuantizationLevel
 from .utils.color import THGIC_MAGIC
@@ -67,7 +80,9 @@ from .utils.container import (
     read_preview,
     read_thgi_subbands,
     write_archive,
+    write_thgi,
 )
+from .oracle import oracle_decode, oracle_encode
 from .utils.imageio import load_luma, save_gray
 
 _FAST_CHUNK = 32  # tiles a K1 + X1 call of encode-tiled --fast
@@ -83,6 +98,19 @@ def _add_device_options(p: argparse.ArgumentParser) -> None:
         "(all bit-identical)",
     )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def _add_backend_option(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--backend",
+        choices=("torch", "oracle", "native"),
+        default="torch",
+        help="torch = the codec on --engine/--device; oracle = the per-pixel "
+        "NumPy model; native = the scalar C++ stand-in (Crossed only: "
+        "left_top takes the oracle). oracle and native run on the host and "
+        "ignore --engine and --device, but for color and previews, which "
+        "go through the codec",
+    )
 
 
 def _add_encoding_options(p: argparse.ArgumentParser) -> None:
@@ -138,21 +166,53 @@ def _archive_codec(args, meta) -> HGICodec:
     )
 
 
+def _make_grid(image: np.ndarray, quant, args) -> np.ndarray:
+    """The residual grid of ``image`` by the host backend ``--backend``
+    (JAX ``_make_grid``; ``torch`` goes through the codec)."""
+    if args.backend == "native" and args.predictor == "crossed":
+        return native_encode(image, args.level, quant)
+    # The C++ stand-in codes Crossed only: left_top takes the oracle, as in JAX.
+    return oracle_encode(image, args.level, quant, predictor=args.predictor)
+
+
+def _decode_grid(grid: np.ndarray, levels: int, predictor: str, args) -> np.ndarray:
+    """The plane of a residual grid by the host backend ``--backend`` (JAX
+    ``_decode_grid``)."""
+    if args.backend == "native" and predictor == "crossed":
+        return native_decode(grid, levels)
+    return oracle_decode(grid, levels, predictor=predictor)
+
+
+def _host_archive(image: np.ndarray, quant, args) -> Archive:
+    """The archive of ``image`` by the host backend ``--backend``; the
+    codec, on the CPU, only names its metadata."""
+    meta = HGICodec(args.level, quant, predictor=args.predictor, device="cpu").metadata_for(
+        *image.shape)
+    return Archive(meta, _make_grid(image, quant, args))
+
+
 def cmd_encode(args) -> int:
     quant = QuantizationLevel.parse(args.quantizator)
-    codec = _codec(args, quant)
     if args.color:
+        # Through the codec whatever --backend says, as in the JAX CLI.
         from .utils.color import encode_color, load_rgb
 
-        blob = encode_color(codec, load_rgb(args.input), fmt=args.format)
+        blob = encode_color(_codec(args, quant), load_rgb(args.input), fmt=args.format)
         with open(args.output, "wb") as f:
             f.write(blob)
         return 0
     image = load_luma(args.input)
-    if args.format == "thgi" and args.fast:
-        blob = codec.write_fast(image)
+    fast = args.format == "thgi" and args.fast
+    if args.backend != "torch":
+        # The JAX CLI's _serialize: --fast codes the host grid with the
+        # device rANS's plain version.
+        archive = _host_archive(image, quant, args)
+        blob = write_thgi(archive, fast=True, device="cpu") if fast else \
+            write_archive(archive, args.format)
+    elif fast:
+        blob = _codec(args, quant).write_fast(image)
     else:
-        blob = write_archive(codec.encode(image), args.format)
+        blob = write_archive(_codec(args, quant).encode(image), args.format)
     with open(args.output, "wb") as f:
         f.write(blob)
     return 0
@@ -177,6 +237,13 @@ def cmd_decode(args) -> int:
         preview = _archive_codec(args, meta).decode_preview(anchors, subbands, shape, upto)
         save_gray(args.output, preview.cpu().numpy())
         return 0
+    if args.backend != "torch":
+        archive = read_archive(data, device="cpu")
+        meta = archive.metadata
+        plane = _decode_grid(archive.grid, meta.scale_level,
+                             predictor_name_for_tag(meta.interpolation), args)
+        save_gray(args.output, plane)
+        return 0
     if is_subband_thgi(data):
         # A subband-layout .thgi feeds the subband decode directly.
         meta, anchors, subbands = read_thgi_subbands(data, device=args.device)
@@ -194,10 +261,14 @@ def cmd_test(args) -> int:
     # Mirrors main.rs:73-120: roundtrip, print metrics, write .png + archive.
     quant = QuantizationLevel.parse(args.quantizator)
     image = load_luma(args.input)
-    codec = _codec(args, quant)
-    grid, _ = codec.encode_plane(image)
-    decoded = codec.decode_plane(grid).cpu().numpy()
-    archive = Archive(codec.metadata_for(*image.shape), grid.cpu().numpy())
+    if args.backend == "torch":
+        codec = _codec(args, quant)
+        grid, _ = codec.encode_plane(image)
+        decoded = codec.decode_plane(grid).cpu().numpy()
+        archive = Archive(codec.metadata_for(*image.shape), grid.cpu().numpy())
+    else:
+        archive = _host_archive(image, quant, args)
+        decoded = _decode_grid(archive.grid, args.level, args.predictor, args)
     # --fast is ignored here, as in the JAX CLI: the archive is write_archive's.
     blob = write_archive(archive, args.format)
 
@@ -375,12 +446,14 @@ def main(argv=None) -> int:
     p.add_argument("-i", "--input", required=True)
     p.add_argument("-o", "--output", required=True)
     _add_encoding_options(p)
+    _add_backend_option(p)
     p.set_defaults(fn=cmd_encode)
 
     p = sub.add_parser("decode", help="decompress an archive to an image")
     p.add_argument("-i", "--input", required=True)
     p.add_argument("-o", "--output", required=True)
     _add_device_options(p)
+    _add_backend_option(p)
     p.add_argument("--preview", type=int, default=None, metavar="N",
                    help="decode only the coarsest N levels (a 2**(levels-N)-"
                    "downsampled preview)")
@@ -390,6 +463,7 @@ def main(argv=None) -> int:
     p.add_argument("input")
     p.add_argument("-s", "--suffix", default="")
     _add_encoding_options(p)
+    _add_backend_option(p)
     p.set_defaults(fn=cmd_test)
 
     p = sub.add_parser(

@@ -1,15 +1,18 @@
 """Probes of the card, run one at a time.
 
-Counterpart of the JAX repo's ``tools/chip_probe.py``.  Two subcommands
+Counterpart of the JAX repo's ``tools/chip_probe.py``.  Three subcommands
 are ported: ``vpucal``, the op-rate calibration probe (``cmd_vpucal``), on
-the probe kernel K8 (:mod:`..ops.vpucal`, ``csrc/hgi_probe.cu``), and
+the probe kernel K8 (:mod:`..ops.vpucal`, ``csrc/hgi_probe.cu``);
 ``sweep`` (``cmd_sweep``), which times lossy K1's and K3's tile and fine
 depth, the same for the decodes K2 and K5 (fine 0: a launch a level; K5's
 previews; the tile at more plane counts and sizes), and X1's lanes a
-block, where the JAX probe swept its Pallas kernel's row tiles::
+block, where the JAX probe swept its Pallas kernel's row tiles; and
+``validate`` (:func:`validate`), which holds the codec's kernels on the
+card against the oracle at the JAX probe's five cases::
 
     python -m rustyhgi_tpu_torch.tools.chip_probe vpucal [names]
     python -m rustyhgi_tpu_torch.tools.chip_probe sweep
+    python -m rustyhgi_tpu_torch.tools.chip_probe validate
 
 ``names`` is a comma-separated subset of the rows:
 
@@ -51,15 +54,18 @@ import os
 import re
 import subprocess
 import sys
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..ops import _build, vpucal
+from ..ops.quantizers import QuantizationLevel, quantize_fn
 from ..utils.benchsuite import device_samples
 
-__all__ = ["cmd_sweep", "cmd_vpucal", "main", "sass_chain", "sass_loops"]
+__all__ = ["VALIDATE_CASES", "cmd_sweep", "cmd_vpucal", "main", "sass_chain", "sass_loops",
+           "validate"]
 
 SEED = 20261016
 SHAPE = (8, 1080, 1920)
@@ -524,6 +530,98 @@ def cmd_sweep() -> Dict[str, dict]:
     return rows
 
 
+# -- validate ------------------------------------------------------------------
+
+# The JAX probe's cases: ((height, width), levels, preset, predictor).
+VALIDATE_CASES = (
+    ((1080, 1920), 4, QuantizationLevel.LOSSLESS, "crossed"),
+    ((1080, 1920), 4, QuantizationLevel.MEDIUM, "crossed"),
+    ((517, 1024), 3, QuantizationLevel.LOSSLESS, "crossed"),  # ragged height
+    ((300, 500), 4, QuantizationLevel.MEDIUM, "crossed"),  # ragged height and width
+    ((256, 384), 5, QuantizationLevel.HIGH, "left_top"),
+)
+VALIDATE_COLUMNS = ("grid", "decode", "subband", "sb-decode", "plain", "native")
+
+
+def validate(cases=VALIDATE_CASES) -> dict:
+    """The codec's kernels on the card against the oracle, at each case
+    of ``cases`` (default the JAX probe's five), on seeded random bytes:
+
+    * grid: K1's grid equals ``oracle_encode``'s;
+    * decode: K2 of the oracle's grid equals ``oracle_decode``'s plane;
+    * subband: K3's anchors, quads and recon equal the plain version's
+      (:func:`..ops.pyramid.encode_subbands` on the card), and its quads
+      assembled into a grid equal the oracle's;
+    * sb-decode: K5 of the plain version's layout equals the plain
+      version's decode and the oracle's plane;
+    * plain: the plain version's grid and decode on the card equal the
+      oracle's (the JAX probe's ``planar`` column, whose engine is the
+      plain version here);
+    * native: the scalar C++ stand-in's grid and decode equal the
+      oracle's; Crossed only, so a left_top case reads ``n/a``.
+
+    Prints a line a case in the JAX probe's form, then one JSON object
+    ``{"validate": {case: {column: true|false|null}}, "seconds": {case:
+    s}, "launches": {...}, "ok": ...}``: each case's host seconds, most
+    of them the oracle's, and the wrapper calls of K1, K2, K3 and K5 it
+    made; returns that object.  Needs a CUDA card and raises
+    without one."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("validate needs a CUDA card: torch.cuda.is_available() is false")
+    from ..ops import cuda_codec, native, pyramid
+    from ..oracle import oracle_decode, oracle_encode
+
+    counters = {"K1": "encode_launches", "K2": "decode_launches",
+                "K3": "encode_subbands_launches", "K5": "decode_subbands_launches"}
+    before = {k: getattr(cuda_codec, a) for k, a in counters.items()}
+    print(f"device: {torch.cuda.get_device_name(0)} [{card()}] | the kernels against the "
+          f"oracle (rustyhgi_tpu_torch.oracle) on np.random.default_rng(1) bytes", flush=True)
+    rng = np.random.default_rng(1)
+    rows, seconds = {}, {}
+    for (h, w), levels, preset, pred in cases:
+        t0 = time.perf_counter()
+        img = rng.integers(0, 256, (h, w), np.uint8)
+        q = quantize_fn(preset)
+        table = None if q.identity else q.table
+        x = torch.from_numpy(img).to("cuda")
+        grid_o = oracle_encode(img, levels, preset, pred)
+        plane_o = oracle_decode(grid_o, levels, pred)
+        grid_od = torch.from_numpy(grid_o).to("cuda")
+
+        def same(t, want) -> bool:
+            return np.array_equal(t.cpu().numpy(), want)
+
+        plain_sb = pyramid.encode_subbands(x, levels, table, pred)
+        anchors, subbands, _ = plain_sb
+        k3 = cuda_codec.encode_subbands(x, levels, table, pred)
+        k5 = cuda_codec.decode_subbands(anchors, subbands, (h, w), levels, pred)
+        row = {
+            "grid": same(cuda_codec.encode_plane(x, levels, table, pred)[0], grid_o),
+            "decode": same(cuda_codec.decode_plane(grid_od, levels, pred), plane_o),
+            "subband": _same_layout(k3, plain_sb)
+            and same(pyramid.assemble_grid(k3[0], k3[1], (h, w)), grid_o),
+            "sb-decode": torch.equal(k5, pyramid.decode_subbands(anchors, subbands, (h, w),
+                                                                 levels, pred))
+            and same(k5, plane_o),
+            "plain": same(pyramid.encode_plane(x, levels, table, pred)[0], grid_o)
+            and same(pyramid.decode_plane(grid_od, levels, pred), plane_o),
+            "native": None if pred != "crossed" else bool(
+                np.array_equal(native.native_encode(img, levels, preset), grid_o)
+                and np.array_equal(native.native_decode(grid_o, levels), plane_o)),
+        }
+        key = f"{h}x{w} l{levels} {preset.name} {pred}"
+        rows[key] = row
+        seconds[key] = time.perf_counter() - t0
+        shown = " ".join(f"{c}={'n/a' if v is None else 'OK' if v else 'FAIL'}"
+                         for c, v in row.items())
+        print(f"{key}: {shown}", flush=True)
+    launches = {k: getattr(cuda_codec, a) - before[k] for k, a in counters.items()}
+    out = {"validate": rows, "seconds": seconds, "launches": launches,
+           "ok": all(v is not False for row in rows.values() for v in row.values())}
+    print(json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m rustyhgi_tpu_torch.tools.chip_probe",
@@ -535,7 +633,11 @@ def main(argv=None) -> int:
                    help=f"comma-separated rows, of {','.join(ROWS)} (default all)")
     sub.add_parser("sweep", help="the tile and fine depth of lossy K1, K3, K2 and K5, X1's "
                                  "lanes a block")
+    sub.add_parser("validate", help="K1, K2, K3, K5, the plain version and the C++ stand-in "
+                                    "against the oracle at the JAX probe's five cases")
     args = parser.parse_args(argv)
+    if args.command == "validate":
+        return 0 if validate()["ok"] else 1
     if args.command == "sweep":
         cmd_sweep()
     else:

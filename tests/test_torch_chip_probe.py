@@ -206,3 +206,42 @@ def test_sweep_compares_whole_subband_layouts():
     assert chip_probe._same_layout(got, want)
     got[1][2][1][1, 0, 0] ^= 1
     assert not chip_probe._same_layout(got, want)
+
+
+def _jax_validate_cases():
+    """The case list of the JAX probe's ``cmd_validate``, read from its
+    source (importing it would start JAX on its compilation cache)."""
+    import ast
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "tools", "chip_probe.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "cmd_validate")
+    loop = next(n for n in ast.walk(fn) if isinstance(n, ast.For) and isinstance(n.iter, ast.List))
+
+    def value(node):
+        if isinstance(node, ast.Attribute):  # QuantizationLevel.X
+            return node.attr
+        if isinstance(node, ast.Tuple):
+            return tuple(value(e) for e in node.elts)
+        return ast.literal_eval(node)
+
+    return [value(e) for e in loop.iter.elts]
+
+
+def test_validate_cases_are_the_jax_probes():
+    ours = [(shape, levels, preset.name, pred)
+            for shape, levels, preset, pred in chip_probe.VALIDATE_CASES]
+    assert ours == _jax_validate_cases()
+    assert len(ours) == 5
+
+
+@pytest.mark.parametrize("argv", [["validate"], None])
+def test_validate_without_a_card_raises(monkeypatch, argv):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        if argv is None:
+            chip_probe.validate(chip_probe.VALIDATE_CASES[2:])
+        else:
+            chip_probe.main(argv)

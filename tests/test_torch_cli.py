@@ -1,5 +1,7 @@
 """The port's CLI against ``python -m rustyhgi_tpu``: same bytes, same printout."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -138,3 +140,130 @@ def test_default_device_is_cuda(png, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert main(["encode", "-i", png, "-o", "x.hgi"]) == 1
     assert "CUDA is not available" in capsys.readouterr().err
+
+
+# --backend: the counterpart of the JAX CLI's test_backend_parity.
+BACKENDS = [("torch", "jax"), ("oracle", "oracle"), ("native", "native")]
+
+
+def _ours(backend):
+    """The port's flags for a backend: the device only for torch, so that
+    the host backends run at the default --device."""
+    return ["--backend", backend, *(CPU if backend == "torch" else [])]
+
+
+@pytest.mark.parametrize("backend,jax_backend", BACKENDS, ids=[b for b, _ in BACKENDS])
+@pytest.mark.parametrize("fmt", ["hgi", "thgi"])
+@pytest.mark.parametrize("preset", ["lossless", "low", "medium"])
+@pytest.mark.parametrize("pred", ["crossed", "left_top"])
+def test_backends_write_and_read_the_jax_clis_bytes(png, backend, jax_backend, fmt, preset,
+                                                      pred):
+    flags = ["-q", preset, "--format", fmt, "--predictor", pred]
+    assert jax_main(["encode", "-i", png, "-o", "ref.bin", *flags,
+                     "--backend", jax_backend]) == 0
+    assert main(["encode", "-i", png, "-o", "ours.bin", *flags, *_ours(backend)]) == 0
+    with open("ref.bin", "rb") as a, open("ours.bin", "rb") as b:
+        assert a.read() == b.read()
+    assert jax_main(["decode", "-i", "ref.bin", "-o", "ref.png", "--backend", jax_backend]) == 0
+    assert main(["decode", "-i", "ref.bin", "-o", "ours.png", *_ours(backend)]) == 0
+    assert np.array_equal(load_luma("ours.png"), load_luma("ref.png"))
+
+
+@pytest.mark.parametrize("backend,jax_backend", BACKENDS, ids=[b for b, _ in BACKENDS])
+@pytest.mark.parametrize("flags", [["-q", "lossless"], ["-q", "medium", "-l", "3"],
+                                   ["--predictor", "left_top", "-q", "high", "--format", "thgi"],
+                                   ["-q", "low", "-l", "16"]],
+                         ids=["lossless", "medium-l3", "left_top-thgi", "l16"])
+def test_backends_test_printout_matches_jax_cli(png, capsys, backend, jax_backend, flags):
+    flags = [*flags, "-s", "_t"]
+    ext = "thgi" if "thgi" in flags else "hgi"
+    assert jax_main(["test", png, *flags, "--backend", jax_backend]) == 0
+    ref = capsys.readouterr().out
+    with open(f"img_t.{ext}", "rb") as f:
+        ref_blob = f.read()
+    ref_png = load_luma("img_t.png")
+    assert main(["test", png, *flags, *_ours(backend)]) == 0
+    assert capsys.readouterr().out == ref
+    with open(f"img_t.{ext}", "rb") as f:
+        assert f.read() == ref_blob
+    assert np.array_equal(load_luma("img_t.png"), ref_png)
+
+
+@pytest.mark.parametrize("backend", ["oracle", "native"])
+@pytest.mark.parametrize("pred", ["crossed", "left_top"])
+def test_fast_under_a_host_backend_matches_jax_cli(png, backend, pred):
+    # The JAX CLI's _serialize: the host grid coded as the fast .thgi.
+    argv = ["encode", "-i", png, "-o", "f.thgi", "--format", "thgi", "--fast",
+            "--predictor", pred, "--backend", backend]
+    assert jax_main(argv) == 0
+    with open("f.thgi", "rb") as f:
+        want = f.read()
+    assert main(argv) == 0
+    with open("f.thgi", "rb") as f:
+        got = f.read()
+    assert got == want and got[29] == 7  # codec 7: the device rANS
+
+
+@pytest.mark.parametrize("backend", ["oracle", "native"])
+@pytest.mark.parametrize("preset", ["lossless", "medium"])
+def test_color_under_a_host_backend_goes_through_the_codec(workdir, backend, preset):
+    from rustyhgi_tpu_torch.utils.color import load_rgb, save_rgb
+
+    rng = np.random.default_rng(5)
+    save_rgb("rgb.png", rng.integers(0, 256, (21, 34, 3), dtype=np.uint8))
+    argv = ["encode", "-i", "rgb.png", "-o", "c.thgic", "--color", "-q", preset,
+            "--format", "thgi"]
+    assert jax_main([*argv, "--backend", backend]) == 0
+    with open("c.thgic", "rb") as f:
+        want = f.read()
+    assert main([*argv, "--backend", backend, *CPU]) == 0
+    with open("c.thgic", "rb") as f:
+        assert f.read() == want
+    assert jax_main(["decode", "-i", "c.thgic", "-o", "ref.png", "--backend", backend]) == 0
+    assert main(["decode", "-i", "c.thgic", "-o", "ours.png", "--backend", backend, *CPU]) == 0
+    assert np.array_equal(load_rgb("ours.png"), load_rgb("ref.png"))
+
+
+@pytest.mark.parametrize("backend", ["oracle", "native"])
+def test_decode_preview_under_a_host_backend_goes_through_the_codec(png, backend):
+    assert main(["encode", "-i", png, "-o", "x.thgi", "--format", "thgi", *CPU]) == 0
+    assert jax_main(["decode", "-i", "x.thgi", "-o", "ref.png", "--preview", "2",
+                     "--backend", backend]) == 0
+    assert main(["decode", "-i", "x.thgi", "-o", "ours.png", "--preview", "2",
+                 "--backend", backend, *CPU]) == 0
+    assert np.array_equal(load_luma("ours.png"), load_luma("ref.png"))
+
+
+@pytest.mark.parametrize("backend", ["oracle", "native"])
+@pytest.mark.parametrize("pred", ["crossed", "left_top"])
+def test_host_backends_need_no_card_at_the_default_device(png, capsys, monkeypatch, backend,
+                                                          pred):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    flags = ["-q", "medium", "--predictor", pred, "--backend", backend]
+    assert main(["encode", "-i", png, "-o", "x.hgi", *flags]) == 0
+    assert main(["decode", "-i", "x.hgi", "-o", "x.png", "--backend", backend]) == 0
+    assert main(["test", png, *flags, "-s", "_t"]) == 0
+    assert "SD:" in capsys.readouterr().out
+    # The default backend is the codec, which still needs the card.
+    assert main(["test", png, "-s", "_t"]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
+    assert main(["decode", "-i", "x.hgi", "-o", "x.png"]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
+
+
+def test_native_without_its_library_raises_and_never_takes_the_oracle(png, capsys,
+                                                                     monkeypatch):
+    from rustyhgi_tpu_torch.ops import native
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load_failed", True)
+    assert main(["encode", "-i", png, "-o", "x.hgi", "--backend", "native"]) == 1
+    assert "native library unavailable" in capsys.readouterr().err
+    assert not os.path.exists("x.hgi")
+    assert main(["encode", "-i", png, "-o", "x.hgi", "--backend", "oracle"]) == 0
+    assert main(["decode", "-i", "x.hgi", "-o", "x.png", "--backend", "native"]) == 1
+    assert "native library unavailable" in capsys.readouterr().err
+    # left_top never reaches the stand-in, in JAX as here: the oracle codes it.
+    assert main(["encode", "-i", png, "-o", "lt.hgi", "--predictor", "left_top",
+                 "--backend", "native"]) == 0
+

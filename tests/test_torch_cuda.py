@@ -625,3 +625,17 @@ def test_dryrun_on_the_card(cuda):
     forward, (example,) = entry()
     grid, _ = forward(example)
     assert grid.device.type == "cuda"
+
+
+def test_probe_validate_on_the_small_cases(cuda):
+    """``chip_probe validate`` on the JAX probe's three small cases: K1, K2,
+    K3, K5, the plain version and the C++ stand-in against the oracle."""
+    from rustyhgi_tpu_torch.tools import chip_probe
+
+    out = chip_probe.validate(chip_probe.VALIDATE_CASES[2:])
+    assert out["ok"]
+    for case, row in out["validate"].items():
+        for column, ok in row.items():
+            assert ok or (ok is None and column == "native" and case.endswith("left_top")), \
+                (case, column)
+    assert all(out["launches"][k] >= 3 for k in ("K1", "K2", "K3", "K5"))

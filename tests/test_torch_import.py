@@ -34,6 +34,7 @@ MODULES = [
     "rustyhgi_tpu_torch.ops.quantizers",
     "rustyhgi_tpu_torch.ops.tpurans",
     "rustyhgi_tpu_torch.ops.vpucal",
+    "rustyhgi_tpu_torch.oracle",
     "rustyhgi_tpu_torch.parallel",
     "rustyhgi_tpu_torch.parallel.mesh",
     "rustyhgi_tpu_torch.parallel.multihost",
@@ -78,7 +79,8 @@ def test_imports_with_jax_blocked():
     "module",
     ["rustyhgi_tpu_torch.utils.color", "rustyhgi_tpu_torch.parallel",
      "rustyhgi_tpu_torch.parallel.multihost", "rustyhgi_tpu_torch.dryrun",
-     "rustyhgi_tpu_torch.ops.library", "rustyhgi_tpu_torch.models.codec"],
+     "rustyhgi_tpu_torch.ops.library", "rustyhgi_tpu_torch.models.codec",
+     "rustyhgi_tpu_torch.oracle"],
 )
 def test_color_and_parallel_load_neither_jax_nor_the_jax_package(module):
     code = (
@@ -93,6 +95,23 @@ def test_color_and_parallel_load_neither_jax_nor_the_jax_package(module):
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_oracle_source_imports_neither_torch_nor_jax():
+    # The trusted model is pure NumPy: its own code imports numpy and the
+    # port's quantizer tables, nothing else (the package's __init__ loads
+    # torch for the rest of the port).
+    path = os.path.join(PKG, "oracle.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            imported.add("." * node.level + (node.module or ""))
+    assert imported == {"__future__", "numpy", ".ops.quantizers"}
+    assert "torch" not in open(path).read().replace("rustyhgi_tpu_torch", "")
 
 
 def test_multihost_names_are_ported_and_cover_jax_all():
