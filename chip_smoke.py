@@ -18,10 +18,14 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    1-8, lossless and medium); the subband kernels also against K1, K3
    also with no recon wanted, K4 and K5 also on quads one byte into
    buffers of their own; then the fast
-   mode's kernels (X1 device rANS, K6 bit-plane pack, K7 unpack) over
-   stream sizes at the lanes' and blocks' edges, degenerate streams, a
-   constant plane with one odd byte (frequencies 1 and 16383, the
-   reciprocal's extremes), the residual grids of 1x and 8x1080x1920,
+   mode's kernels (X1 device rANS, K6 bit-plane pack, K7 unpack, K6
+   and K7 with and without compaction, the compacting ones also one
+   byte into a buffer, K7 also on the body placed as codec 2's read
+   places it) over stream sizes at the lanes' and blocks' edges,
+   degenerate streams, streams whose blocks all keep 8 planes or none
+   and whose planes start at an odd offset of the body, a constant
+   plane with one odd byte (frequencies 1 and 16383, the reciprocal's
+   extremes), the residual grids of 1x and 8x1080x1920,
    2614x2368 and 4096x4096 (the largest plane X1 takes) and a batch of
    32 planes; then K1, K2 and X1 at the color and tiled paths' shapes
    ([3, 1080, 1920], [32, 512, 512], [256, 512, 512]); then the op-rate
@@ -46,7 +50,9 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    --fast``, and the host rule above 2**24 pixels), and check that each
    of those calls launched its kernels (K1 and X1 for each
    ``write_fast``, ``write_fast_batch`` and ``encode --fast``, K6, K7 and
-   K2 for the others); the stages (K1, X1, the two copies to the host
+   K2 for the others); codec 2's copies, printed beside its body's
+   length, must be at most the body and 64 bytes to the host on write
+   and the body to the card on read; the stages (K1, X1, the two copies to the host
    beside the payload bytes, the framing, and the host race of
    ``write_thgi`` on the same grid) are timed in calls of their own,
    before the counted run;
@@ -134,14 +140,18 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    larger of its bytes over 3.35 TB/s and its operations over the card's
    issue ceiling (132 SMs x 128 lanes x the SM clock's maximum), or over
    the highest SASS instruction rate a K8 chain measured, where that is
-   higher.  X1 also has a chain bound: its rows T times the dependent
+   higher; K6's and K7's count the function's work, 3 operations a
+   symbol and the stream and the body each moved once (for the 8-plane
+   ones, timed too, all 8 planes and the widths).  X1 also
+   has a chain bound: its rows T times the dependent
    chain of its lanes loop, in SASS instructions a row (read with
    ``cuobjdump -sass``), times 4 cycles, over the SM clock;
 16. run the probe's ``sweep`` (lossy K1's and K3's tile and fine depth,
    K2's and K5's tile and fine depth with fine 0 for one launch a level,
    K5's previews, the decodes' tile at more plane counts and sizes, X1's
-   lanes a block) in a process of its own, whose traces hold every record,
-   and check the launches of K1, K2, K3, K5 and X1 that it reports.
+   lanes a block, K6's and K7's blocks a warp) in a process of its own,
+   whose traces hold every record, and check the launches of K1, K2, K3,
+   K5, K6, K7 and X1 that it reports.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -210,8 +220,12 @@ REPLACES = {  # C entry point, the TPU kernel it replaces, its source
     "K3": ("hgi_encode_subbands", "rustyhgi_tpu/ops/pallas_codec.py:913", _CODEC_SRC),
     "K4": ("hgi_assemble_grid", "rustyhgi_tpu/ops/pallas_codec.py:1249", _CODEC_SRC),
     "K5": ("hgi_decode_subbands", "rustyhgi_tpu/ops/pallas_codec.py:1321", _CODEC_SRC),
-    "K6": ("bitpack_pack", "rustyhgi_tpu/ops/pallas_kernels.py:120", _ENTROPY_SRC),
-    "K7": ("bitpack_unpack", "rustyhgi_tpu/ops/pallas_kernels.py:157", _ENTROPY_SRC),
+    "K6": ("bitpack_pack_compact", "rustyhgi_tpu/ops/pallas_kernels.py:120", _ENTROPY_SRC),
+    "K7": ("bitpack_unpack_compact", "rustyhgi_tpu/ops/pallas_kernels.py:157", _ENTROPY_SRC),
+    # the same kernels without compaction, JAX's contract: timed beside
+    # them and kept in their records under "eight_plane"
+    "K6 8-plane": ("bitpack_pack", "rustyhgi_tpu/ops/pallas_kernels.py:120", _ENTROPY_SRC),
+    "K7 8-plane": ("bitpack_unpack", "rustyhgi_tpu/ops/pallas_kernels.py:157", _ENTROPY_SRC),
     "K8": ("hgi_vpucal", "tools/chip_probe.py:641", _PROBE_SRC),
     "X1": ("rans_tpu_encode", "rustyhgi_tpu/ops/tpurans.py:172", _ENTROPY_SRC),
 }
@@ -237,6 +251,12 @@ PEAK_BYTES_PER_S = 3.35e12
 SMS, DISPATCH_LANES_PER_SM, INT32_LANES_PER_SM = 132, 128, 64
 K8_ROUNDS = 200  # K8's rounds in its timing row
 X1_ROWS_A_LOOP = 8  # rows a pass of X1's main lanes loop codes (two groups of 4, hgi_entropy.cu)
+BLOCK_BYTES = 8 * 128  # a bit-pack block's 8 planes
+# K6's and K7's operations a symbol, from the function, not from either
+# kernel: its fold, one operation, and each of its 8 bits put into its
+# own plane, one operation a bit on 32-bit words of 4 symbols, so two a
+# symbol.  The bytes set their bound at any count near this.
+BITPACK_OPS_PER_SYMBOL = 3
 
 
 def _reset_launches() -> None:
@@ -403,6 +423,40 @@ def _expanded(packed, widths, nb: int, n: int) -> torch.Tensor:
     return torch.from_numpy(bitpack.expand_packed(data, n)[0]).to(DEVICE)
 
 
+def _placed(body: torch.Tensor, n: int) -> torch.Tensor:
+    """A copy of a codec-2 body placed as ``unpack_bytes`` places it: its
+    planes on a 16-byte boundary."""
+    pad = -(8 + (-(-n // bitpack.BLOCK) + 1) // 2) % 16
+    buf = torch.empty(pad + body.numel(), dtype=torch.uint8, device=body.device)
+    buf[pad:].copy_(body)
+    return buf[pad:]
+
+
+def compare_compacting(flat: torch.Tensor, name: str) -> tuple:
+    """Phase 2: the compacting K6 and K7 against their plain versions, bit
+    for bit: K6 on the stream and on a copy one byte in (the byte-wise
+    loads), K7 on the body as K6 left it, placed as ``unpack_bytes``
+    places it, and one byte into a buffer of its own.  Returns the worst
+    |err| of K6 and of K7."""
+    n = flat.numel()
+    want = bitpack.pack_stream_plain(flat)
+    err6 = 0
+    for label, src in (("", flat), (" unaligned", _unaligned(flat))):
+        body = bitpack.pack_stream(src)
+        e = _err(body, want)
+        err6 = max(err6, e)
+        _check(e == 0, f"compacting K6{label} differs from the plain version on {name}")
+    err7 = 0
+    plain = bitpack.unpack_stream_plain(want, n)
+    _check(torch.equal(plain, flat), f"unpack_stream_plain(pack_stream_plain) != input on {name}")
+    for label, src in (("", body), (" placed", _placed(body, n)),
+                       (" unaligned", _unaligned(body))):
+        e = _err(bitpack.unpack_stream(src, n), plain)
+        err7 = max(err7, e)
+        _check(e == 0, f"compacted K7{label} differs from the plain version on {name}")
+    return err6, err7
+
+
 def compare_fast_kernels(rng) -> dict:
     """Phase 2, fast mode: X1, K6 and K7 against their plain versions,
     bit for bit; returns the worst |err| of each."""
@@ -414,6 +468,14 @@ def compare_fast_kernels(rng) -> dict:
               ("one symbol", np.full((1, 3000), 255, np.uint8)),
               ("two symbols", np.tile(np.array([0, 255], np.uint8), (1, 500))),
               ("all 256 symbols", np.tile(np.arange(256, dtype=np.uint8), (1, 4)))]
+    # The compacting kernels' edges: every block keeping all 8 planes (128
+    # folds to 255), and nb % 4 of 2 (6 blocks), where the body's planes
+    # start at an odd offset, as at nb % 4 of 1 (one block, 1080x1920's
+    # 2025 and 2614x2368's 6045).
+    wide = (rng.geometric(0.3, (1, 9 * 1024 + 77)) % 256).astype(np.uint8)
+    wide[0, ::1024] = 128
+    cases += [("all 8 planes", wide),
+              ("nb % 4 == 2", (rng.geometric(0.3, (1, 6000)) % 256).astype(np.uint8))]
     odd = np.zeros((1, 1080 * 1920), np.uint8)
     odd[0, 123457] = 77  # frequency 1 beside 16383: the reciprocal's extremes
     cases.append(("one odd byte 1080x1920", odd))
@@ -458,6 +520,8 @@ def compare_fast_kernels(rng) -> dict:
         worst["K7"] = max(worst["K7"], err)
         _check(err == 0, f"K7 differs from the plain version on {name}")
         _check(torch.equal(out[: flat.numel()], flat), f"K7(K6) != input on {name}")
+        err = compare_compacting(flat, name)
+        worst["K6"], worst["K7"] = max(worst["K6"], err[0]), max(worst["K7"], err[1])
     torch.cuda.synchronize()
     too_big = torch.zeros(1, 4097 * 4096, dtype=torch.uint8, device=DEVICE)
     try:
@@ -468,7 +532,9 @@ def compare_fast_kernels(rng) -> dict:
         _fail("X1 took a plane above MAX_SYMBOLS")
     real = {k: v for k, v in shapes.items() if k.startswith("grid")}
     print(f"phase fast-kernels-vs-plain: {len(cases)} streams, X1, K6 and K7 bit-identical "
-          f"(tolerance: exact), max_abs_err {worst}; every payload decodes to its input; "
+          f"(tolerance: exact; K6 and K7 with and without compaction, compacting K6 also "
+          f"one byte in, compacted K7 also placed and one byte in), max_abs_err {worst}; "
+          f"every payload decodes to its input; "
           f"(lanes L, rows T) {real}; frequencies 1 and 16383 in one table; 4097x4096 "
           f"refused by X1")
     return worst
@@ -957,22 +1023,37 @@ def fast_path(rng, batch: np.ndarray, stages: dict, card: str) -> None:
         archive = Archive(codec.metadata_for(*image.shape), grids[0])
         t0 = time.perf_counter()
         raced = write_thgi(archive)
+        bitpack.h2d_bytes = bitpack.d2h_bytes = 0
         t1 = time.perf_counter()
         packed = _rising(f"write_thgi(bitpack, fast) {preset}", ("K6",),
                          lambda: write_thgi(archive, codecs=["bitpack"], fast=True, device=DEVICE))
         t2 = time.perf_counter()
+        write_link = (bitpack.h2d_bytes, bitpack.d2h_bytes)
+        bitpack.h2d_bytes = bitpack.d2h_bytes = 0
         back = _rising(f"read_thgi of codec 2 {preset}", ("K7",),
                        lambda: read_thgi(packed, device=DEVICE))
         t3 = time.perf_counter()
+        read_link = (bitpack.h2d_bytes, bitpack.d2h_bytes)
         _check(CODEC_NAMES[packed[29]] == "bitpack" and np.array_equal(back.grid, grids[0]),
                f"fast path {preset}: codec 2 does not round-trip")
         _check(np.array_equal(codec.decode(back), recon[0]),
                f"fast path {preset}: codec 2 does not decode to the recon")
+        body = container._parse_thgi_header(packed)[4]
+        n, nb = image.size, -(-image.size // bitpack.BLOCK)
+        _check(write_link == (n, write_link[1]) and write_link[1] <= len(body) + 64,
+               f"fast path {preset}: codec 2's write copied {write_link} B for a body of "
+               f"{len(body)} B")
+        _check(read_link == (len(body), n),
+               f"fast path {preset}: codec 2's read copied {read_link} B for a body of "
+               f"{len(body)} B")
         print(f"fast path 1x1080x1920 {preset}: host race write_thgi {(t1 - t0) * 1e3:.3f} ms -> "
               f"layout {LAYOUT_NAMES[raced[28]]} codec {CODEC_NAMES[raced[29]]} {len(raced)} B; "
               f"write_fast {len(blobs[0])} B ({100 * (len(blobs[0]) / len(raced) - 1):+.1f}%); "
               f"codec 2 write_thgi(bitpack, fast) {(t2 - t1) * 1e3:.3f} ms {len(packed)} B, "
-              f"read_thgi {(t3 - t2) * 1e3:.3f} ms (host clock) [{card}]")
+              f"read_thgi {(t3 - t2) * 1e3:.3f} ms (host clock); codec 2 body {len(body)} B: "
+              f"write H2D {write_link[0]} B, D2H {write_link[1]} B; read H2D {read_link[0]} B, "
+              f"D2H {read_link[1]} B (all 8 planes and the widths would be D2H "
+              f"{BLOCK_BYTES * nb + 4 * nb} B on write, H2D {BLOCK_BYTES * nb} B on read) [{card}]")
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
@@ -1562,8 +1643,8 @@ def bench_tier(card: str) -> tuple:
 def sweep(card: str) -> None:
     """Last phase: ``python -m rustyhgi_tpu_torch.tools.chip_probe sweep``
     in a process of its own, whose traces hold every record however much
-    this one traced; the sweep reports the wrapper calls of K1, K2, K3, K5
-    and X1 it made."""
+    this one traced; the sweep reports the wrapper calls of K1, K2, K3, K5,
+    K6, K7 and X1 it made."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "rustyhgi_tpu_torch.tools.chip_probe", "sweep"],
                           cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -1575,7 +1656,7 @@ def sweep(card: str) -> None:
     print(f"phase sweep: launches {launches}; {sum(1 for v in timed if v)} of {len(timed)} "
           f"choices timed")
     _check(any(timed), "chip_probe sweep timed no choice")
-    for kernel in ("K1", "K2", "K3", "K5", "X1"):
+    for kernel in ("K1", "K2", "K3", "K5", "K6", "K7", "X1"):
         _check(launches[kernel] > 0, f"chip_probe sweep never launched {kernel}")
 
 
@@ -1691,13 +1772,15 @@ def timings(inputs: dict, card: str, peak_ops: float, early: dict) -> dict:
         flat = grid.reshape(-1)
         packed, widths, nb = bitpack.pack_blocks(flat)
         expanded = _expanded(packed, widths, nb, n)
+        body = _placed(bitpack.pack_stream(flat), n)  # as codec 2's read places it
         sym = grid.reshape(b, -1)
         counts = tpurans.encode_batch(sym)[1]
         lanes, words = counts.shape[1], int(counts.sum())
         cells = b * lanes * -(-sym.shape[1] // lanes)
         # (kernel, kernel call, plain call, bytes each input read once and
-        # each output written once, integer operations estimated from
-        # the kernel's source per element)
+        # each output written once, integer operations: K1-K5 and X1
+        # estimated from the kernel's source per element, K6 and K7
+        # counted from the function, BITPACK_OPS_PER_SYMBOL)
         for kernel, kern, plain, io_bytes, ops in (
             ("K1", lambda: cuda_codec.encode_plane(img, 4, table),
              lambda: pyramid.encode_plane(img, 4, table), 2 * n + lossy, 12 * n),
@@ -1709,11 +1792,16 @@ def timings(inputs: dict, card: str, peak_ops: float, early: dict) -> dict:
              lambda: pyramid.assemble_grid(anchors, subbands, hw), canvas + n, 10 * n),
             ("K5", lambda: cuda_codec.decode_subbands(anchors, subbands, hw, 4),
              lambda: pyramid.decode_subbands(anchors, subbands, hw, 4), canvas + n, 8 * canvas),
-            ("K6", lambda: bitpack.pack_blocks(flat), lambda: bitpack.pack_plain(flat),
-             n + packed.numel() + 4 * nb, 30 * packed.numel()),
-            ("K7", lambda: bitpack.unpack_blocks(expanded),
+            ("K6", lambda: bitpack.pack_compact(flat), lambda: bitpack.pack_stream_plain(flat),
+             n + body.numel(), BITPACK_OPS_PER_SYMBOL * n),
+            ("K7", lambda: bitpack.unpack_stream(body, n),
+             lambda: bitpack.unpack_stream_plain(body, n), body.numel() + n,
+             BITPACK_OPS_PER_SYMBOL * n),
+            ("K6 8-plane", lambda: bitpack.pack_blocks(flat), lambda: bitpack.pack_plain(flat),
+             n + packed.numel() + 4 * nb, BITPACK_OPS_PER_SYMBOL * n),
+            ("K7 8-plane", lambda: bitpack.unpack_blocks(expanded),
              lambda: bitpack.unpack_plain(expanded), 2 * expanded.numel(),
-             30 * expanded.numel()),
+             BITPACK_OPS_PER_SYMBOL * n),
             ("X1", lambda: tpurans.encode_batch(sym), lambda: tpurans.encode_plain(sym),
              n + 4 * b * (256 + 2 * lanes) + 2 * words, 22 * cells),
             ("K8", lambda: vpucal.vpucal_chain(img, "mix3", K8_ROUNDS),
@@ -1905,7 +1993,8 @@ def main() -> int:
                 log.read_text(), ("encode_lossless", "encode_tiles", "encode_level",
                                   "decode_tiles", "encode_sub_level", "encode_sub_lossless",
                                   "assemble_rows", "rans_histogram", "rans_normalize",
-                                  "rans_encode_lanes")).items():
+                                  "rans_encode_lanes", "bitpack_pack_warps",
+                                  "bitpack_unpack_warps")).items():
             print(f"ptxas {name}: {info}")
     t0 = time.perf_counter()
     _check(native.available(), "the native coders (make -C native) did not build or load")
@@ -2062,6 +2151,11 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": None,
         }
         record["device_launches"] = row["device_launches"]
+        if kernel in ("K6", "K7"):
+            eight = rows[(f"{kernel} 8-plane", "1x1080x1920", "medium")]
+            record["eight_plane"] = {"name": REPLACES[f"{kernel} 8-plane"][0],
+                                     **{k: eight[k] for k in ("ms", "device_ms", "plain_ms",
+                                                              "bound_ms", "device_launches")}}
         record["launches_color"] = color_launches[kernel]
         record["launches_tiled"] = tiled_launches[kernel]
         for phase, got in new_launches.items():

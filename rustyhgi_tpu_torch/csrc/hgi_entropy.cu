@@ -58,13 +58,34 @@
 // and the stores read a copy of the state.  A batch fills the card over
 // its B * L / W blocks.
 //
-// K6 packs 1024-symbol blocks, one block of 128 threads each: thread j
-// folds its column's 8 bytes (zigzag), builds the 8 plane bytes with
-// shifts, and the block's largest value (warp __reduce_max_sync, then
-// shared memory) gives the width, its bit length.  It writes all 8 planes
-// and the width; the host keeps the used planes.  K7 is the inverse over
-// host-expanded planes (absent ones zero).  Both are bound by device
-// memory: each byte is read once and written once, coalesced.
+// K6 and K7 take a warp per 1024-symbol block ([8, 128]: row k, column
+// j), or per 2 or 4 consecutive blocks, kPackWarps warps a CTA.  Lane l
+// holds columns 4l .. 4l+3 of the 8 rows as eight 32-bit words: a warp's
+// access to one row or plane is one whole 128-byte line.  K6 folds the
+// four bytes of a word at once (SWAR zigzag), ORs the words and then the
+// warp (__reduce_or_sync): the bit length of the OR is the block's width.
+// Three mask-and-shift stages transpose each byte column's 8x8 bit
+// matrix, so word r becomes plane r.  Compacting (codec 2's write), the
+// CTA takes a ticket, sums its blocks' widths, and a decoupled look-back
+// over the CTAs before it (X1's look_back) gives its first plane; each
+// warp then stores only its kept planes, and the CTA writes its width
+// nibbles (and CTA 0 the header) into place: the device buffer holds the
+// codec-2 body as it is written to the archive, its planes on a 16-byte
+// boundary, and the last CTA writes the planes' total for the host's
+// first, 8-byte fetch.  The look-back's words are zeroed on the stream
+// before each launch.  K7 compacted reads the body as it lies in the
+// archive: a CTA's first plane is the sum of the nibbles before it, and
+// each warp loads its blocks' kept planes (the rest zero), transposes
+// back, unfolds and stores its 1024 bytes a block.  Without compaction
+// (JAX's pack_blocks and unpack_blocks contract) the same kernels write
+// or read all 8 planes of every block at block * 8.  What bounds both on
+// this card: device memory, the stream read once and the kept planes
+// written once (or the reverse); the fold and the transposes take some
+// 40 integer instructions a word of four symbols.  At one 1080x1920
+// plane the look-back's chain of round trips through L2, not the bytes,
+// sets compacting K6's time.  16-byte accesses would need the planes
+// regathered through shared memory: more instructions for the same
+// lines.
 
 #include <algorithm>
 #include <climits>
@@ -92,6 +113,9 @@ constexpr unsigned long long kAggregate = 1ull, kPrefix = 2ull;  // look-back fl
 constexpr unsigned long long kValueMask = (1ull << 62) - 1;
 constexpr int kBlock = 1024;  // symbols per bit-pack block: [8, 128]
 constexpr int kLane = 128;
+constexpr int kPackWarps = 8;  // K6's and K7's blocks a CTA, one a warp
+// Compacting K6's look-back words: the ticket counter, then a CTA's word.
+constexpr int kPackCounters = 1;
 
 // Inclusive block-wide scan of v; *total gets the sum over the block.
 // Every thread of a block of kWarps * 32 threads must call it.
@@ -474,50 +498,285 @@ cudaError_t launch_lanes(bool vec, unsigned blocks, cudaStream_t st, const uint8
   return cudaGetLastError();
 }
 
-__global__ void bitpack_pack_blocks(const uint8_t* in, uint8_t* out,
-                                    int* widths, long long n) {
-  __shared__ uint32_t warp_max[kLane / 32];
-  const int j = threadIdx.x;
-  const long long base = (long long)blockIdx.x * kBlock;
-  uint32_t z[8];
-  uint32_t m = 0;
+// Zigzag (and its inverse) of the four bytes of a word at once: byte v
+// to (v << 1) ^ (v >= 128 ? 0xff : 0), 8 bits each.
+__device__ __forceinline__ uint32_t zigzag4(uint32_t v) {
+  return ((v << 1) & 0xfefefefeu) ^ (((v >> 7) & 0x01010101u) * 0xffu);
+}
+
+__device__ __forceinline__ uint32_t unzigzag4(uint32_t z) {
+  return ((z >> 1) & 0x7f7f7f7fu) ^ ((z & 0x01010101u) * 0xffu);
+}
+
+// Swap the bits of a above b's by D (mask m): one stage of the transpose.
+template <int D>
+__device__ __forceinline__ void swap_bits(uint32_t& a, uint32_t& b, uint32_t m) {
+  const uint32_t t = ((a >> D) ^ b) & m;
+  a ^= t << D;
+  b ^= t;
+}
+
+// Bit r of byte c of w[k] to bit k of byte c of w[r]: the 8x8 bit
+// transpose of each of the four byte columns, in three stages.  It is its
+// own inverse.
+__device__ __forceinline__ void transpose8(uint32_t (&w)[8]) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const long long i = base + k * kLane + j;
-    const uint32_t v = i < n ? in[i] : 0u;
-    z[k] = v < 128 ? 2 * v : (256 - v) * 2 - 1;  // zigzag
-    m = max(m, z[k]);
+  for (int k = 0; k < 4; ++k) swap_bits<4>(w[k], w[k + 4], 0x0f0f0f0fu);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    swap_bits<2>(w[k], w[k + 2], 0x33333333u);
+    swap_bits<2>(w[k + 4], w[k + 6], 0x33333333u);
   }
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    uint32_t p = 0;
+  for (int k = 0; k < 8; k += 2) swap_bits<1>(w[k], w[k + 1], 0x55555555u);
+}
+
+// Four bytes at p, those at or past `left` read as 0.
+__device__ __forceinline__ uint32_t load4_bytes(const uint8_t* p, long long left) {
+  uint32_t v = 0;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) p |= ((z[k] >> r) & 1u) << k;
-    out[base + r * kLane + j] = (uint8_t)p;
-  }
-  m = __reduce_max_sync(0xffffffffu, m);
-  if ((j & 31) == 0) warp_max[j >> 5] = m;
-  __syncthreads();
-  if (j == 0) {
-    const uint32_t mm = max(max(warp_max[0], warp_max[1]), max(warp_max[2], warp_max[3]));
-    widths[blockIdx.x] = 32 - __clz(mm);  // bit length: planes needed
+  for (int c = 0; c < 4; ++c)
+    if (c < left) v |= (uint32_t)p[c] << (8 * c);
+  return v;
+}
+
+// Blocks blk0 .. blk0 + kPer - 1 of the stream, lane's columns, as words
+// of 4 bytes a row (0 past the stream).
+template <int kPer>
+__device__ __forceinline__ void load_blocks(uint32_t (&w)[kPer][8], const uint8_t* in,
+                                            long long blk0, long long n, int nb, bool vec) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const long long blk = blk0 + p;
+    const long long base = blk * kBlock + 4 * lane;
+    if (blk >= nb) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) w[p][k] = 0;
+    } else if (vec && blk * kBlock + kBlock <= n) {
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(in + base);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) w[p][k] = __ldg(src + k * (kLane / 4));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        w[p][k] = load4_bytes(in + base + k * kLane, n - base - k * kLane);
+    }
   }
 }
 
-__global__ void bitpack_unpack_blocks(const uint8_t* in, uint8_t* out) {
-  const int j = threadIdx.x;
-  const long long base = (long long)blockIdx.x * kBlock;
-  uint32_t p[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) p[r] = in[base + r * kLane + j];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    uint32_t z = 0;
-#pragma unroll
-    for (int r = 0; r < 8; ++r) z |= ((p[r] >> k) & 1u) << r;
-    out[base + k * kLane + j] =
-        (uint8_t)((z & 1u) == 0 ? z >> 1 : (256 - ((z + 1) >> 1)) & 255);
+// K6.  A warp packs kPer consecutive blocks, a CTA kPackWarps * kPer.
+// kCompact: the codec-2 body into place (see the note at the top):
+// `head` gets the header and the nibbles, `planes` (4-byte aligned) the
+// kept planes one block after another, *total the planes' count; `words`
+// is the look-back state, zeroed before the launch.  Else `planes` gets
+// [nb, 8, 128] and `widths` [nb].  vec: `in` is 4-byte aligned.
+template <bool kCompact, int kPer>
+__global__ void __launch_bounds__(kPackWarps * 32)
+    bitpack_pack_warps(const uint8_t* __restrict__ in, uint8_t* __restrict__ planes,
+                       int* __restrict__ widths, uint8_t* __restrict__ head,
+                       unsigned long long* words, unsigned long long* total, long long n,
+                       int nb, bool vec) {
+  constexpr int kCtaBlocks = kPackWarps * kPer;
+  __shared__ int s_width[kCtaBlocks];
+  __shared__ unsigned long long s_excl;
+  __shared__ int s_cta;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int cta = blockIdx.x;
+  if (kCompact) {  // the ticket orders the look-back
+    if (threadIdx.x == 0) s_cta = (int)atomicAdd(reinterpret_cast<unsigned*>(words), 1u);
+    __syncthreads();
+    cta = s_cta;
   }
+  uint32_t w[kPer][8];
+  load_blocks<kPer>(w, in, (long long)cta * kCtaBlocks + warp * kPer, n, nb, vec);
+  const long long blk0 = (long long)cta * kCtaBlocks + warp * kPer;
+  int width[kPer];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    uint32_t any = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      w[p][k] = zigzag4(w[p][k]);
+      any |= w[p][k];
+    }
+    any = __reduce_or_sync(0xffffffffu, any);
+    any |= any >> 16;
+    any |= any >> 8;
+    width[p] = 32 - __clz(any & 0xffu);  // bit length: planes kept (0 past the last block)
+    transpose8(w[p]);
+  }
+  if (!kCompact) {
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const long long blk = blk0 + p;
+      if (blk >= nb) break;
+      uint32_t* dst = reinterpret_cast<uint32_t*>(planes + blk * kBlock) + lane;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) dst[r * (kLane / 4)] = w[p][r];
+      if (lane == 0) widths[blk] = width[p];
+    }
+    return;
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) s_width[warp * kPer + p] = width[p];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int mine = lane < kCtaBlocks ? s_width[lane] : 0;
+    const long long nnib = (nb + 1) / 2;
+    const long long byte = (long long)cta * (kCtaBlocks / 2) + lane;
+    if (lane < kCtaBlocks / 2 && byte < nnib)
+      head[8 + byte] = (uint8_t)(s_width[2 * lane] | (s_width[2 * lane + 1] << 4));
+    if (cta == 0 && lane < 8)  // u32 LE n, u32 LE nb
+      head[lane] = (uint8_t)((unsigned long long)(lane < 4 ? n : nb) >> (8 * (lane & 3)));
+    const unsigned agg = __reduce_add_sync(0xffffffffu, (unsigned)mine);
+    const unsigned long long excl = look_back(words + kPackCounters, cta, agg);
+    if (lane == 0) {
+      s_excl = excl;
+      if (cta == (int)gridDim.x - 1) *total = excl + agg;
+    }
+  }
+  __syncthreads();
+  unsigned long long first = s_excl;
+  for (int i = 0; i < warp * kPer; ++i) first += s_width[i];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    if (blk0 + p >= nb) break;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(planes + first * kLane) + lane;
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (r < width[p]) dst[r * (kLane / 4)] = w[p][r];
+    first += width[p];
+  }
+}
+
+// The widths of the CTA's blocks before it, from the nibbles alone: every
+// thread sums the nibble pairs of a share of the bytes before the CTA's.
+template <int kCtaBlocks>
+__device__ unsigned long long nibbles_before(const uint8_t* nibbles, int cta) {
+  __shared__ unsigned s_part[kPackWarps];
+  const long long bytes = (long long)cta * (kCtaBlocks / 2);
+  unsigned sum = 0;
+  for (long long i = threadIdx.x; i < bytes; i += kPackWarps * 32) {
+    const unsigned b = nibbles[i];
+    sum += min(b & 15u, 8u) + min(b >> 4, 8u);
+  }
+  sum = __reduce_add_sync(0xffffffffu, sum);
+  if ((threadIdx.x & 31) == 0) s_part[threadIdx.x >> 5] = sum;
+  __syncthreads();
+  unsigned long long all = 0;
+#pragma unroll
+  for (int i = 0; i < kPackWarps; ++i) all += s_part[i];
+  return all;
+}
+
+// K7.  A warp unpacks kPer consecutive blocks.  kCompact: `src` is the
+// codec-2 body (header, nibbles, kept planes) of `len` bytes, and a
+// CTA's first plane is the sum of the nibbles before it.  Else `src`
+// holds [nb, 8, 128] planes.  `out` gets nb * 1024 bytes.  vec: the
+// planes start on a 4-byte boundary.  Widths above 8 read as 8, bytes at
+// or past `len` as 0 (the host has checked the body).
+template <bool kCompact, int kPer>
+__global__ void __launch_bounds__(kPackWarps * 32)
+    bitpack_unpack_warps(const uint8_t* __restrict__ src, uint8_t* __restrict__ out,
+                         long long len, int nb, bool vec) {
+  constexpr int kCtaBlocks = kPackWarps * kPer;
+  __shared__ int s_width[kCtaBlocks];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long nnib = (nb + 1) / 2;
+  const long long at = kCompact ? 8 + nnib : 0;  // the first plane
+  const int cta = blockIdx.x;
+  unsigned long long first = 0;
+  if (kCompact) {
+    if (warp == 0 && lane < kCtaBlocks) {
+      const long long b = (long long)cta * kCtaBlocks + lane;
+      int mine = 0;
+      if (b < nb) {
+        const uint32_t nib = src[8 + (b >> 1)];
+        mine = min((int)((b & 1) ? nib >> 4 : nib & 15u), 8);
+      }
+      s_width[lane] = mine;
+    }
+    first = nibbles_before<kCtaBlocks>(src + 8, cta);  // its __syncthreads orders s_width
+    for (int i = 0; i < warp * kPer; ++i) first += s_width[i];
+  }
+  const long long blk0 = (long long)cta * kCtaBlocks + warp * kPer;
+  uint32_t w[kPer][8] = {};
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const long long blk = blk0 + p;
+    if (blk >= nb) break;
+    const int width = kCompact ? s_width[warp * kPer + p] : 8;
+    const unsigned long long plane0 = kCompact ? first : (unsigned long long)blk * 8;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const long long pos = at + (long long)(plane0 + r) * kLane + 4 * lane;
+      if (r < width) {
+        if (vec && pos + 4 <= len)
+          w[p][r] = __ldg(reinterpret_cast<const uint32_t*>(src + pos));
+        else
+          w[p][r] = load4_bytes(src + pos, len - pos);
+      }
+    }
+    first += width;
+  }
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const long long blk = blk0 + p;
+    if (blk >= nb) break;
+    transpose8(w[p]);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + blk * kBlock) + lane;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dst[k * (kLane / 4)] = unzigzag4(w[p][k]);
+  }
+}
+
+int pack_ctas(long long nb, int per) {
+  return (int)((nb + kPackWarps * per - 1) / (kPackWarps * per));
+}
+
+template <typename... Args>
+cudaError_t launch_pack(int per, long long nb, cudaStream_t st, bool compact, Args... args) {
+  const int ctas = pack_ctas(nb, per);
+  if (compact) {
+    switch (per) {
+      case 1: bitpack_pack_warps<true, 1><<<ctas, kPackWarps * 32, 0, st>>>(args...); break;
+      case 2: bitpack_pack_warps<true, 2><<<ctas, kPackWarps * 32, 0, st>>>(args...); break;
+      case 4: bitpack_pack_warps<true, 4><<<ctas, kPackWarps * 32, 0, st>>>(args...); break;
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (per) {
+      case 1: bitpack_pack_warps<false, 1><<<ctas, kPackWarps * 32, 0, st>>>(args...); break;
+      case 2: bitpack_pack_warps<false, 2><<<ctas, kPackWarps * 32, 0, st>>>(args...); break;
+      case 4: bitpack_pack_warps<false, 4><<<ctas, kPackWarps * 32, 0, st>>>(args...); break;
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaGetLastError();
+}
+
+template <typename... Args>
+cudaError_t launch_unpack(int per, long long nb, cudaStream_t st, bool compact, Args... args) {
+  const int ctas = pack_ctas(nb, per);
+  if (compact) {
+    switch (per) {
+      case 1: bitpack_unpack_warps<true, 1><<<ctas, kPackWarps * 32, 0, st>>>(args...); break;
+      case 2: bitpack_unpack_warps<true, 2><<<ctas, kPackWarps * 32, 0, st>>>(args...); break;
+      case 4: bitpack_unpack_warps<true, 4><<<ctas, kPackWarps * 32, 0, st>>>(args...); break;
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (per) {
+      case 1: bitpack_unpack_warps<false, 1><<<ctas, kPackWarps * 32, 0, st>>>(args...); break;
+      case 2: bitpack_unpack_warps<false, 2><<<ctas, kPackWarps * 32, 0, st>>>(args...); break;
+      case 4: bitpack_unpack_warps<false, 4><<<ctas, kPackWarps * 32, 0, st>>>(args...); break;
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -581,28 +840,72 @@ int rans_tpu_encode(const void* sym, void* freq, void* counts, void* states, voi
   }
 }
 
-// K6: in is [n] uint8; out [nb, 8, 128] uint8 and widths [nb] int32,
-// nb = ceil(n / 1024), all device buffers.
-int bitpack_pack(const void* in, void* out, void* widths, long long n,
-                 long long nb, void* cu_stream) {
+// K6 without compaction: in is [n] uint8; out [nb, 8, 128] uint8 and
+// widths [nb] int32, nb = ceil(n / 1024), all device buffers.  per: the
+// blocks a warp packs (1, 2 or 4).
+int bitpack_pack(const void* in, void* out, void* widths, long long n, long long nb, int per,
+                 void* cu_stream) {
   auto st = static_cast<cudaStream_t>(cu_stream);
   if (n <= 0) return cudaSuccess;
-  if (nb != (n + kBlock - 1) / kBlock || nb > 0x7fffffffLL)
+  if (nb != (n + kBlock - 1) / kBlock || nb > 0x7fffffffLL ||
+      reinterpret_cast<uintptr_t>(out) % 4)
     return cudaErrorInvalidValue;
-  bitpack_pack_blocks<<<(unsigned)nb, kLane, 0, st>>>(
-      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
-      static_cast<int*>(widths), n);
-  return cudaGetLastError();
+  const bool vec = reinterpret_cast<uintptr_t>(in) % 4 == 0;
+  return launch_pack(per, nb, st, false, static_cast<const uint8_t*>(in),
+                     static_cast<uint8_t*>(out), static_cast<int*>(widths),
+                     static_cast<uint8_t*>(nullptr), static_cast<unsigned long long*>(nullptr),
+                     static_cast<unsigned long long*>(nullptr), n, (int)nb, vec);
 }
 
-// K7: in is [nb, 8, 128] bit-planes, out [nb * 1024] uint8.
-int bitpack_unpack(const void* in, void* out, long long nb, void* cu_stream) {
+// K7 without compaction: in is [nb, 8, 128] bit-planes, out [nb * 1024]
+// uint8 (4-byte aligned).
+int bitpack_unpack(const void* in, void* out, long long nb, int per, void* cu_stream) {
   auto st = static_cast<cudaStream_t>(cu_stream);
   if (nb <= 0) return cudaSuccess;
-  if (nb > 0x7fffffffLL) return cudaErrorInvalidValue;
-  bitpack_unpack_blocks<<<(unsigned)nb, kLane, 0, st>>>(
-      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out));
-  return cudaGetLastError();
+  if (nb > 0x7fffffffLL || reinterpret_cast<uintptr_t>(out) % 4) return cudaErrorInvalidValue;
+  const bool vec = reinterpret_cast<uintptr_t>(in) % 4 == 0;
+  return launch_unpack(per, nb, st, false, static_cast<const uint8_t*>(in),
+                       static_cast<uint8_t*>(out), nb * kBlock, (int)nb, vec);
+}
+
+// K6 compacting: in is [n] uint8, 0 < n < 2^32; buf is the device buffer
+// of the body: its first 8 bytes get the kept planes' total (u64), the
+// header and the nibbles go to buf + head and the planes to buf + head + 8
+// + ceil(nb / 2), which must be 4-byte aligned, with room for 8 planes a
+// block.  words: kPackCounters + ceil(nb / (kPackWarps * per)) 8-byte
+// words for the look-back, zeroed here on the stream before the launch.
+int bitpack_pack_compact(const void* in, void* buf, long long head, void* words, long long n,
+                         int per, void* cu_stream) {
+  auto st = static_cast<cudaStream_t>(cu_stream);
+  const long long nb = (n + kBlock - 1) / kBlock;
+  auto* b = static_cast<uint8_t*>(buf);
+  uint8_t* planes = b + head + 8 + (nb + 1) / 2;
+  if (n <= 0 || n > 0xffffffffLL || head < 8 || reinterpret_cast<uintptr_t>(planes) % 4 ||
+      reinterpret_cast<uintptr_t>(buf) % 8 || (per != 1 && per != 2 && per != 4))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(
+      words, 0, (kPackCounters + pack_ctas(nb, per)) * sizeof(unsigned long long), st);
+  if (err != cudaSuccess) return err;
+  const bool vec = reinterpret_cast<uintptr_t>(in) % 4 == 0;
+  return launch_pack(per, nb, st, true, static_cast<const uint8_t*>(in), planes,
+                     static_cast<int*>(nullptr), b + head,
+                     static_cast<unsigned long long*>(words),
+                     reinterpret_cast<unsigned long long*>(b), n, (int)nb, vec);
+}
+
+// K7 compacted: body is a codec-2 body of len bytes on the device (any
+// alignment) whose stream holds n symbols, 0 < n < 2^32; out gets
+// ceil(n / 1024) * 1024 bytes (4-byte aligned).
+int bitpack_unpack_compact(const void* body, void* out, long long len, long long n, int per,
+                           void* cu_stream) {
+  auto st = static_cast<cudaStream_t>(cu_stream);
+  const long long nb = (n + kBlock - 1) / kBlock;
+  if (n <= 0 || n > 0xffffffffLL || len < 8 + (nb + 1) / 2 ||
+      reinterpret_cast<uintptr_t>(out) % 4)
+    return cudaErrorInvalidValue;
+  const auto* s = static_cast<const uint8_t*>(body);
+  const bool vec = reinterpret_cast<uintptr_t>(s + 8 + (nb + 1) / 2) % 4 == 0;
+  return launch_unpack(per, nb, st, true, s, static_cast<uint8_t*>(out), len, (int)nb, vec);
 }
 
 }  // extern "C"

@@ -145,10 +145,14 @@ def load() -> ctypes.CDLL:
         lib.rans_tpu_encode.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
         lib.rans_tpu_encode.restype = i32
         i64 = ctypes.c_longlong
-        lib.bitpack_pack.argtypes = [ptr, ptr, ptr, i64, i64, ptr]
+        lib.bitpack_pack.argtypes = [ptr, ptr, ptr, i64, i64, i32, ptr]
         lib.bitpack_pack.restype = i32
-        lib.bitpack_unpack.argtypes = [ptr, ptr, i64, ptr]
+        lib.bitpack_unpack.argtypes = [ptr, ptr, i64, i32, ptr]
         lib.bitpack_unpack.restype = i32
+        lib.bitpack_pack_compact.argtypes = [ptr, ptr, i64, ptr, i64, i32, ptr]
+        lib.bitpack_pack_compact.restype = i32
+        lib.bitpack_unpack_compact.argtypes = [ptr, ptr, i64, i64, i32, ptr]
+        lib.bitpack_unpack_compact.restype = i32
         lib.hgi_vpucal.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr]
         lib.hgi_vpucal.restype = i32
         lib.hgi_error_string.argtypes = [i32]

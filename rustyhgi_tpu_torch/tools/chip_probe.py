@@ -380,6 +380,7 @@ SWEEP_PREVIEWS = (3, 2)
 SWEEP_DECODE_SHAPES = ((2, 1080, 1920), (1, 2614, 2368), (4, 1080, 1920))
 SWEEP_LANE_BLOCKS = (32, 64, 128)
 SWEEP_X1_PLANES = (1, 8, 32)
+SWEEP_BITPACK_SHAPES = ((1, 1080, 1920), (8, 1080, 1920))  # one stream of a grid's bytes
 
 
 def _plane(rng, shape) -> np.ndarray:
@@ -433,6 +434,43 @@ def _decode_rows(rows, img, levels, table, device_ms, smi, fines, tiles, uptos=(
                       f"[{smi}]", flush=True)
 
 
+def _bitpack_rows(rows, img, table, device_ms, smi) -> None:
+    """K6 and K7 at each of ``bitpack.PER_WARP`` on ``img``'s residual grid
+    as one stream, each output checked against the plain version's."""
+    from ..ops import bitpack, cuda_codec
+
+    flat = cuda_codec.encode_plane(img, 4, table)[0].reshape(-1)
+    n = flat.numel()
+    body = bitpack.pack_stream_plain(flat)
+    pad = -(8 + (-(-n // bitpack.BLOCK) + 1) // 2) % 16  # placed as unpack_bytes places it
+    placed = torch.empty(pad + body.numel(), dtype=torch.uint8, device="cuda")
+    placed[pad:].copy_(body)
+    placed = placed[pad:]
+    packed, widths, _ = bitpack.pack_plain(flat)
+    expanded = torch.from_numpy(bitpack.expand_packed(body.cpu().numpy().tobytes(), n)[0]).cuda()
+    shape = "x".join(map(str, img.shape))
+    for per in bitpack.PER_WARP:
+        buf, head, start = bitpack.pack_compact(flat, per)
+        total = int(buf[:8].view(torch.int64).item())
+        got = bitpack.pack_blocks(flat, per)
+        if not (torch.equal(buf[head : start + 128 * total], body)
+                and torch.equal(got[0], packed) and torch.equal(got[1], widths)):
+            raise RuntimeError(f"K6 at {per} blocks a warp differs at {shape}")
+        if not torch.equal(bitpack.unpack_stream(placed, n, per), flat):
+            raise RuntimeError(f"K7 at {per} blocks a warp differs at {shape}")
+        if not torch.equal(bitpack.unpack_blocks(expanded, per)[:n], flat):
+            raise RuntimeError(f"K7 8-plane at {per} blocks a warp differs at {shape}")
+        for name, fn in (
+                ("K6 compacting", lambda: bitpack.pack_compact(flat, per)),
+                ("K6 8-plane", lambda: bitpack.pack_blocks(flat, per)),
+                ("K7 compacted", lambda: bitpack.unpack_stream(placed, n, per)),
+                ("K7 8-plane", lambda: bitpack.unpack_blocks(expanded, per))):
+            key = f"{shape} {name} {per} a warp"
+            rows[key] = ms = device_ms(fn)
+            print(f"sweep {key}: device {ms if ms is None else f'{ms:.4f}'} ms [{smi}]",
+                  flush=True)
+
+
 def _same_layout(got, want) -> bool:
     """Whether two subband encodes give the same anchors, quads and recon."""
     return (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
@@ -441,17 +479,17 @@ def _same_layout(got, want) -> bool:
 
 def cmd_sweep() -> Dict[str, dict]:
     """Lossy K1's and K3's tile and fine depth, K2's and K5's (with K5's previews
-    and more plane counts and sizes for the decodes' tile), and X1's lanes
-    a block, by device time (``torch.profiler``, the mean of
-    ``bench.REPEATS`` calls), on smooth planes at medium; every choice's
-    output is checked equal to the default's or the plain version's.
-    Prints a row a line, then one JSON object ``{"sweep": {...},
-    "launches": {...}}``, the latter the wrapper calls of K1, K2, K3, K5
-    and X1 the sweep made."""
+    and more plane counts and sizes for the decodes' tile), X1's lanes
+    a block, and K6's and K7's blocks a warp (both contracts), by device time
+    (``torch.profiler``, the mean of ``bench.REPEATS`` calls), on smooth
+    planes at medium; every choice's output is checked equal to the
+    default's or the plain version's.  Prints a row a line, then one JSON
+    object ``{"sweep": {...}, "launches": {...}}``, the latter the wrapper
+    calls of K1, K2, K3, K5, K6, K7 and X1 the sweep made."""
     if not torch.cuda.is_available():
         raise RuntimeError("sweep needs a CUDA card: torch.cuda.is_available() is false")
     from .. import bench
-    from ..ops import cuda_codec, pyramid, tpurans
+    from ..ops import bitpack, cuda_codec, pyramid, tpurans
     from ..ops.quantizers import QuantizationLevel, quantize_fn
 
     smi = card()
@@ -461,10 +499,11 @@ def cmd_sweep() -> Dict[str, dict]:
     def device_ms(fn):
         return sum(bench.device_trace(fn, "cuda").values()) * 1e3 or None
 
-    rows = {"k1": {}, "k3": {}, "k2": {}, "k5": {}, "x1": {}}
+    rows = {"k1": {}, "k3": {}, "k2": {}, "k5": {}, "x1": {}, "bitpack": {}}
     counters = {"K1": (cuda_codec, "encode_launches"), "K2": (cuda_codec, "decode_launches"),
                 "K3": (cuda_codec, "encode_subbands_launches"),
-                "K5": (cuda_codec, "decode_subbands_launches"), "X1": (tpurans, "rans_launches")}
+                "K5": (cuda_codec, "decode_subbands_launches"), "X1": (tpurans, "rans_launches"),
+                "K6": (bitpack, "pack_launches"), "K7": (bitpack, "unpack_launches")}
     before = {k: getattr(m, a) for k, (m, a) in counters.items()}
     print(f"device: {torch.cuda.get_device_name(0)} | K1, K3, K2, K5 medium (crossed) and X1 on "
           f"smooth planes; device ms, torch.profiler mean | default tile {cuda_codec.TILE}, "
@@ -520,6 +559,9 @@ def cmd_sweep() -> Dict[str, dict]:
             rows["x1"][key] = ms
             print(f"sweep X1 {key}: device {ms if ms is None else f'{ms:.4f}'} ms [{smi}]",
                   flush=True)
+    for shape in SWEEP_BITPACK_SHAPES:
+        _bitpack_rows(rows["bitpack"], torch.from_numpy(_plane(rng, shape)).to("cuda"), table,
+                      device_ms, smi)
     drng = np.random.default_rng([SEED, 1])
     for shape in SWEEP_DECODE_SHAPES:
         img = torch.from_numpy(_plane(drng, shape)).to("cuda")

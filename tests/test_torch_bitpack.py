@@ -28,10 +28,20 @@ def _stream(kind, n):
         return _residual_like(rng, n)
     if kind == "uniform":
         return rng.integers(0, 256, n, dtype=np.uint8)
+    if kind == "all8":
+        # Every block keeps all 8 planes: 128 folds to 255.
+        data = _residual_like(rng, n)
+        data[::bitpack.BLOCK] = 128
+        return data
     return np.zeros(n, np.uint8)
 
 
 SIZES = [1, 127, 1023, 1024, 1025, 5000, 65536]
+KINDS = ["residual", "uniform", "zeros", "all8"]
+# Streams of nb = 6, 9 and 10 blocks: with nb % 4 of 1 or 2 the planes
+# start at an odd offset of the body (8 + ceil(nb / 2)), as they do at
+# nb = 1, 2 and 5 above.
+MISALIGNED = [6000, 9216, 10240]
 
 
 def test_zigzag_equals_jax():
@@ -44,7 +54,7 @@ def test_zigzag_equals_jax():
                           np.asarray(pk.unzigzag(np.arange(256, dtype=np.int32))))
 
 
-@pytest.mark.parametrize("kind", ["residual", "uniform", "zeros"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("n", SIZES)
 def test_pack_plain_equals_jax_pack_blocks(kind, n):
     data = _stream(kind, n)
@@ -56,14 +66,39 @@ def test_pack_plain_equals_jax_pack_blocks(kind, n):
     assert np.array_equal(widths.numpy(), np.asarray(want_w)[:nb])
 
 
-@pytest.mark.parametrize("kind", ["residual", "uniform", "zeros"])
-@pytest.mark.parametrize("n", [0] + SIZES)
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", [0] + SIZES + MISALIGNED)
 def test_pack_bytes_equal_jax(kind, n):
     data = _stream(kind, n)
     blob = bitpack.pack_bytes(data, "cpu")
     assert blob == pk.pack_bytes(data)
     assert np.array_equal(bitpack.unpack_bytes(blob, n, "cpu"), data)
     assert np.array_equal(bitpack.unpack_bytes(blob, device="cpu"), np.asarray(pk.unpack_bytes(blob)))
+    if kind == "all8" and n:
+        assert set(np.asarray(pk.pack_blocks(data)[1])[: -(-n // bitpack.BLOCK)]) == {8}
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", [0] + SIZES + MISALIGNED)
+def test_stream_plain_versions_equal_jax_and_the_host_framing(kind, n):
+    """The compacting K6's and K7's plain versions against JAX's
+    pack_bytes and unpack_bytes, and against the host framing of the
+    8-plane contract (finalize_packed, expand_packed)."""
+    data = _stream(kind, n)
+    flat = torch.from_numpy(data)
+    body = bitpack.pack_stream_plain(flat)
+    assert body.dtype == torch.uint8 and body.dim() == 1
+    blob = body.numpy().tobytes()
+    assert blob == pk.pack_bytes(data)
+    assert blob == bitpack.finalize_packed(*(t.numpy() if torch.is_tensor(t) else t
+                                             for t in bitpack.pack_plain(flat)), n)
+    assert torch.equal(bitpack.pack_stream(flat), body)
+    out = bitpack.unpack_stream_plain(body, n)
+    assert out.shape == (n,) and np.array_equal(out.numpy(), np.asarray(pk.unpack_bytes(blob)))
+    expanded = torch.from_numpy(bitpack.expand_packed(blob, n)[0])
+    assert torch.equal(out, bitpack.unpack_plain(expanded)[:n])
+    assert torch.equal(bitpack.unpack_stream(body, n), out)
+    assert bitpack.check_body(blob, n) == n
 
 
 @pytest.mark.parametrize("n", [1025, 65536])
@@ -111,6 +146,10 @@ def test_expand_packed_guards_equal_jax(name):
     with pytest.raises(ValueError) as ref:
         pk.unpack_bytes(data, n)
     assert str(ours.value) == str(ref.value)
+    # The card's read makes the same checks on the host, before any copy.
+    with pytest.raises(ValueError) as checked:
+        bitpack.check_body(data, n)
+    assert str(checked.value) == str(ref.value)
 
 
 def test_wrappers_refuse_what_they_do_not_take():
@@ -123,6 +162,27 @@ def test_wrappers_refuse_what_they_do_not_take():
         bitpack.pack_blocks(meta)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         bitpack.unpack_blocks(meta.reshape(2, 8, 128))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        bitpack.pack_stream(meta)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        bitpack.unpack_stream(meta, 100)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        bitpack.pack_compact(meta)
+    with pytest.raises(ValueError, match="rank 1"):
+        bitpack.unpack_stream(torch.zeros(2, 8, dtype=torch.uint8), 100)
+
+
+def test_blocks_a_warp_are_the_kernels_choices():
+    for nb in (1, 2025, 8191, 8192, 16200, 1 << 22):
+        for k6 in (False, True):
+            assert bitpack.per_warp(nb, k6) in bitpack.PER_WARP
+    assert bitpack.per_warp(2025, True) == 2 and bitpack.per_warp(16200) == 4
+    flat = torch.zeros(2048, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        bitpack.pack_compact(flat, 2)
+    assert bitpack._per(None, 2025) == 1
+    with pytest.raises(ValueError, match="per must be one of"):
+        bitpack._per(3, 2025)
 
 
 def test_pack_bytes_defaults_to_the_card():
@@ -131,3 +191,6 @@ def test_pack_bytes_defaults_to_the_card():
         pytest.skip("a CUDA card is present, so the default device works")
     with pytest.raises((AssertionError, RuntimeError)):
         bitpack.pack_bytes(_stream("residual", 100))
+    blob = bitpack.pack_bytes(_stream("residual", 100), "cpu")
+    with pytest.raises((AssertionError, RuntimeError)):
+        bitpack.unpack_bytes(blob)

@@ -502,6 +502,116 @@ def test_bitpack_kernels_match_plain_version(cuda, name):
     assert np.array_equal(bitpack.unpack_bytes(bitpack.pack_bytes(data, cuda), device=cuda), data)
 
 
+def _bitpack_streams():
+    """STREAMS and the compacting kernels' edges: every block keeping all 8
+    planes (128 folds to 255), every block keeping none, and nb % 4 of 1
+    and 2, where the body's planes start at an odd offset."""
+    rng = np.random.default_rng(24)
+    out = dict(STREAMS)
+    wide = (rng.geometric(0.3, 9 * 1024 + 77) % 256).astype(np.uint8)
+    wide[::1024] = 128
+    out["all-8"] = wide
+    out["all-0"] = np.zeros(7 * 1024 + 5, np.uint8)
+    out["nb5"] = (rng.geometric(0.3, 4 * 1024 + 1) % 256).astype(np.uint8)
+    out["nb6"] = (rng.geometric(0.3, 6000) % 256).astype(np.uint8)
+    out["nb2025"] = (rng.geometric(0.2, 1080 * 1920) % 256).astype(np.uint8)
+    return out
+
+
+BITPACK_STREAMS = _bitpack_streams()
+
+
+def _one_byte_in(t):
+    buf = torch.empty(1 + t.numel(), dtype=torch.uint8, device=t.device)
+    buf[1:].copy_(t)
+    return buf[1:]
+
+
+@pytest.mark.parametrize("name", list(BITPACK_STREAMS))
+def test_compacting_bitpack_kernels_match_plain_version(cuda, name):
+    data = BITPACK_STREAMS[name]
+    n = data.size
+    flat = torch.from_numpy(data).to(cuda)
+    want = bitpack.pack_stream_plain(flat)
+    assert torch.equal(bitpack.pack_stream(flat), want)
+    assert torch.equal(bitpack.pack_stream(_one_byte_in(flat)), want)
+    plain = bitpack.unpack_stream_plain(want, n)
+    assert torch.equal(plain, flat)
+    pad = -(8 + (-(-n // bitpack.BLOCK) + 1) // 2) % 16
+    placed = torch.empty(pad + want.numel(), dtype=torch.uint8, device=cuda)
+    placed[pad:].copy_(want)
+    for body in (want, placed[pad:], _one_byte_in(want)):
+        assert torch.equal(bitpack.unpack_stream(body, n), plain)
+
+
+@pytest.mark.parametrize("per_warp", [1, 2, 4])
+@pytest.mark.parametrize("name", ["all-8", "nb5", "nb2025", "uniform-65536"])
+def test_compacting_kernels_every_way(cuda, name, per_warp):
+    """Each number of blocks a warp, over calls one after another, each of
+    compacting K6's with its look-back words zeroed anew."""
+    data = BITPACK_STREAMS[name]
+    n = data.size
+    flat = torch.from_numpy(data).to(cuda)
+    want = bitpack.pack_stream_plain(flat)
+    expanded = torch.from_numpy(bitpack.expand_packed(want.cpu().numpy().tobytes(), n)[0]).to(cuda)
+    for i in range(8):
+        buf, head, start = bitpack.pack_compact(flat, per_warp)
+        total = int(buf[:8].view(torch.int64).item())
+        assert torch.equal(buf[head : start + 128 * total], want), i
+        assert torch.equal(bitpack.unpack_stream(want, n, per_warp), flat), i
+        assert torch.equal(bitpack.unpack_blocks(expanded, per_warp)[:n], flat), i
+        assert torch.equal(bitpack.pack_blocks(flat, per_warp)[0], bitpack.pack_plain(flat)[0]), i
+    with pytest.raises(ValueError, match="per must be one of"):
+        bitpack.pack_compact(flat, 3)
+
+
+@pytest.mark.parametrize("name", list(BITPACK_STREAMS) + ["empty"])
+def test_bitpack_bytes_round_trip_on_the_card(cuda, name):
+    data = BITPACK_STREAMS.get(name, np.zeros(0, np.uint8))
+    bitpack.h2d_bytes = bitpack.d2h_bytes = 0
+    blob = bitpack.pack_bytes(data, cuda)
+    assert blob == bitpack.pack_bytes(data, "cpu")
+    if data.size:
+        assert bitpack.h2d_bytes == data.size and bitpack.d2h_bytes <= len(blob) + 64
+    bitpack.h2d_bytes = bitpack.d2h_bytes = 0
+    assert np.array_equal(bitpack.unpack_bytes(blob, data.size, cuda), data)
+    if data.size:
+        assert (bitpack.h2d_bytes, bitpack.d2h_bytes) == (len(blob), data.size)
+
+
+def test_empty_stream_on_the_card_launches_nothing(cuda, monkeypatch):
+    """An empty stream's body is the 8-byte header of zeros, made on the
+    card without a kernel and without the plain versions."""
+    def plain(*args):
+        raise AssertionError("a plain version ran on the card's path")
+
+    monkeypatch.setattr(bitpack, "pack_stream_plain", plain)
+    monkeypatch.setattr(bitpack, "unpack_stream_plain", plain)
+    before = (bitpack.pack_launches, bitpack.unpack_launches)
+    body = bitpack.pack_stream(torch.zeros(0, dtype=torch.uint8, device=cuda))
+    assert body.device.type == "cuda" and body.tolist() == [0] * 8
+    assert bitpack.pack_bytes(np.zeros(0, np.uint8), cuda) == bytes(8)
+    assert bitpack.unpack_stream(body, 0).numel() == 0
+    assert bitpack.unpack_bytes(bytes(8), 0, cuda).size == 0
+    assert (bitpack.pack_launches, bitpack.unpack_launches) == before
+
+
+@pytest.mark.parametrize("cut", ["short-body", "wide", "declared-size"])
+def test_bitpack_read_on_the_card_checks_the_body_first(cuda, cut):
+    blob = bitpack.pack_bytes(BITPACK_STREAMS["nb5"], "cpu")
+    wide = bytearray(blob)
+    wide[8] = 0xF9
+    data, n = {"short-body": (blob[:-1], 4097), "wide": (bytes(wide), 4097),
+               "declared-size": (blob, 4096)}[cut]
+    before = bitpack.unpack_launches
+    with pytest.raises(ValueError) as on_card:
+        bitpack.unpack_bytes(data, n, cuda)
+    with pytest.raises(ValueError) as on_cpu:
+        bitpack.unpack_bytes(data, n, "cpu")
+    assert str(on_card.value) == str(on_cpu.value)
+    assert bitpack.unpack_launches == before
+
+
 def test_fast_launch_counters(cuda):
     before = (tpurans.rans_launches, bitpack.pack_launches, bitpack.unpack_launches)
     data = STREAMS["geometric-1025"]
