@@ -61,11 +61,10 @@ import zlib
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 
 from .utils import benchsuite
 from .utils.benchsuite import host_samples, synthetic
-from .utils.profiling import StageTimer, trace
+from .utils.profiling import StageTimer, device_averages, trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LENA_GOLDEN = os.path.join(ROOT, "tests", "golden", "baseline", "lena_l4_lossless.hgi")
@@ -136,8 +135,7 @@ def device_trace(fn, device) -> dict:
         with trace(None, device) as prof:
             for _ in range(REPEATS):
                 fn()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        events = device_averages(prof)
         counts = {e.key: e.count for e in events}
         if counts and all(c % REPEATS == 0 for c in counts.values()):
             return {e.key: e.self_device_time_total / REPEATS / 1e6 for e in events}

@@ -84,6 +84,7 @@ from .utils.container import (
 )
 from .oracle import oracle_decode, oracle_encode
 from .utils.imageio import load_luma, save_gray
+from .utils.profiling import span
 
 _FAST_CHUNK = 32  # tiles a K1 + X1 call of encode-tiled --fast
 
@@ -304,8 +305,14 @@ def cmd_encode_tiled(args) -> int:
     Header (with the shared rANS table under ``--shared-table``), then a
     block a tile in row-major tile order, each framed with its length and
     CRC32 and flushed as it is written, so that an interrupted job leaves
-    a prefix ``--resume`` continues.
+    a prefix ``--resume`` continues.  The command is the span
+    ``cli.encode_tiled``; the ``--fast`` path's stages are spans in it.
     """
+    with span("cli.encode_tiled"):
+        return _encode_tiled(args)
+
+
+def _encode_tiled(args) -> int:
     from .ops.entropy import normalized_freqs
     from .parallel.mesh import make_mesh
     from .parallel.sharded import encode_batch_sharded, pad_batch, tile_plane
@@ -315,7 +322,8 @@ def cmd_encode_tiled(args) -> int:
     shared = args.shared_table
     if shared and args.format != "thgi":
         raise ValueError("--shared-table requires --format thgi")
-    image = load_luma(args.input)
+    with span("cli.load"):
+        image = load_luma(args.input)
     mesh_shape = None
     if args.mesh:
         parts = args.mesh.split(",")
@@ -323,7 +331,8 @@ def cmd_encode_tiled(args) -> int:
             raise ValueError("--mesh expects DATA,TILE (e.g. 4,2)")
         mesh_shape = (int(parts[0]), int(parts[1]))
 
-    tiles, _ = tile_plane(image, (args.tile, args.tile))
+    with span("tiles.split"):
+        tiles, _ = tile_plane(image, (args.tile, args.tile))
     n_tiles = tiles.shape[0]
     h, w = image.shape
 
@@ -371,11 +380,17 @@ def cmd_encode_tiled(args) -> int:
         remaining = tiles[start:]
         with open(args.output, mode) as f:
             if mode == "wb":
-                f.write(thgit2_header(args.tile, w, h, n_tiles, None))
+                header = thgit2_header(args.tile, w, h, n_tiles, None)
+                with span("tiles.write", len(header)):
+                    f.write(header)
             for lo in range(0, remaining.shape[0], _FAST_CHUNK):
-                for b in codec.write_fast_batch(remaining[lo : lo + _FAST_CHUNK]):
-                    f.write(thgit2_block_frame(b))
-                    f.flush()  # a valid resumable prefix at every block
+                with span("tiles.chunk"):
+                    for b in codec.write_fast_batch(remaining[lo : lo + _FAST_CHUNK]):
+                        with span("tiles.frame", len(b)):
+                            block = thgit2_block_frame(b)
+                        with span("tiles.write", len(block)):
+                            f.write(block)
+                            f.flush()  # a valid resumable prefix at every block
         return 0
 
     mesh = make_mesh(mesh_shape, _mesh_devices(args, mesh_shape))

@@ -49,7 +49,7 @@ from ..ops.quantizers import (
     quantize_fn,
 )
 from ..utils.container import Archive, Metadata, frame_rans_tpu, write_archive, write_thgi
-from ..utils.profiling import codec_metrics
+from ..utils.profiling import codec_metrics, span
 
 __all__ = ["HGICodec", "CodecMetrics", "load_exported"]
 
@@ -183,13 +183,19 @@ class HGICodec:
     # -- device compute path ------------------------------------------------
 
     def _to_device(self, x, name: str) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            t = x.to(device=self.device, dtype=torch.uint8)
-        else:
-            arr = np.ascontiguousarray(x, dtype=np.uint8)
-            if not arr.flags.writeable:  # torch tensors are always writable
-                arr = arr.copy()
-            t = torch.from_numpy(arr).to(self.device)
+        """``x`` as a uint8 tensor on the codec's device: the span
+        ``codec.h2d``, whose bytes are those handed over from a host array
+        or a tensor elsewhere (0 for a tensor already there)."""
+        with span("codec.h2d") as s:
+            if isinstance(x, torch.Tensor):
+                t = x.to(device=self.device, dtype=torch.uint8)
+                s.nbytes = 0 if t.device == x.device else t.numel()
+            else:
+                arr = np.ascontiguousarray(x, dtype=np.uint8)
+                if not arr.flags.writeable:  # torch tensors are always writable
+                    arr = arr.copy()
+                t = torch.from_numpy(arr).to(self.device)
+                s.nbytes = t.numel()
         if t.dim() not in (2, 3):
             raise ValueError(f"{name}: expected [H, W] or [B, H, W], got {tuple(t.shape)}")
         return t.contiguous()
@@ -368,11 +374,21 @@ class HGICodec:
         n = h * w
         if n > tpurans.MAX_SYMBOLS:
             return [self.write_fast(imgs[i]) for i in range(b)]
-        grid, _ = self._engine.encode_plane(imgs, self.levels, self._table, self.predictor)
-        freq, counts, states, stream = self._rans(grid.reshape(b, n))
-        heads = tpurans.fetch_heads(freq, counts, states)
-        payloads = tpurans.frame_payloads(n, *heads, tpurans.fetch_words(stream, heads[1]))
-        return frame_rans_tpu(self.metadata_for(h, w), payloads)
+        # The launch spans time the enqueue; the first fetch waits for both.
+        with span("codec.k1_launch"):
+            grid, _ = self._engine.encode_plane(imgs, self.levels, self._table, self.predictor)
+        with span("codec.x1_launch"):
+            freq, counts, states, stream = self._rans(grid.reshape(b, n))
+        with span("codec.fetch_heads") as s:
+            heads = tpurans.fetch_heads(freq, counts, states)
+            s.nbytes = sum(t.numel() * t.element_size() for t in (freq, counts, states))
+        with span("codec.fetch_words") as s:
+            words = tpurans.fetch_words(stream, heads[1])
+            s.nbytes = words.nbytes
+        with span("codec.frame"):
+            payloads = tpurans.frame_payloads(n, *heads, words)
+            del words  # the blobs below reuse its pages instead of faulting in new ones
+            return frame_rans_tpu(self.metadata_for(h, w), payloads)
 
     def test(self, image, fmt: str = "hgi") -> CodecMetrics:
         """Roundtrip + metrics, mirroring ``hgi test`` (main.rs:73-120).

@@ -66,8 +66,13 @@ def device_parts(fn, repeats: int = REPEATS) -> tuple:
         with profiling.trace(None, "cuda") as prof:
             for _ in range(repeats):
                 fn()
+        # Kernels, copies and memsets: not a span's mark on the card's row,
+        # whose self time is the whole range (a ``--root`` version may
+        # lack ``profiling.device_averages``).
         events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.key.startswith("hgi.")]
         if events and all(e.count % repeats == 0 for e in events):
             copy = [("Memcpy" in e.key or "Memset" in e.key) for e in events]
             ms = [sum(e.self_device_time_total for e, c in zip(events, copy) if c == want)

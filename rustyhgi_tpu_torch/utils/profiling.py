@@ -4,7 +4,14 @@ Counterpart of ``rustyhgi_tpu/utils/profiling.py``:
 
 * :func:`trace` captures a ``torch.profiler`` trace (host, and the card's
   kernels and copies on ``cuda``) around any codec region and writes it
-  into a directory as a Chrome trace (Perfetto, ``chrome://tracing``);
+  into a directory as a Chrome trace (Perfetto, ``chrome://tracing``),
+  the program's spans shown over the kernels;
+* :func:`span` marks a stage of the program (the tiled loop, the codec's
+  copies, launches, fetches and framing); :func:`enable_spans` keeps the
+  spans in a bounded ring that :func:`spans` reads, with the bytes each
+  moved, and :func:`self_ns` gives each span's self time;
+* :func:`device_averages` reads a trace's kernels, copies and memsets
+  on the card, without the spans' marks there;
 * :class:`StageTimer` accumulates named stage times and derives rates,
   with the JAX class's API, report and printout; :func:`stage_clock`
   times named functions of other modules while a block runs;
@@ -13,16 +20,154 @@ Counterpart of ``rustyhgi_tpu/utils/profiling.py``:
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-__all__ = ["trace", "StageTimer", "stage_clock", "codec_metrics", "psnr"]
+__all__ = [
+    "trace", "device_averages", "span", "enable_spans", "disable_spans", "spans", "self_ns", "Span",
+    "StageTimer", "stage_clock", "codec_metrics", "psnr",
+]
+
+SPAN_CAPACITY = 65536  # spans the ring keeps by default; a scene makes about 1.1k
+
+# The recorder's state.  ``_active`` is the one flag :func:`span` reads: a
+# ring is kept or a trace() block runs.
+_ring: Optional[collections.deque] = None
+_tracing = 0
+_active = False
+_ids = itertools.count(1)
+_open = threading.local()  # each thread's stack of open spans
+
+
+def _refresh() -> None:
+    global _active
+    _active = _ring is not None or _tracing > 0
+
+
+class Span:
+    """A stage of the program: ``name`` (``layer.stage``), ``start_ns`` and
+    ``end_ns`` on ``time.perf_counter_ns()``, the ``id`` of the span it
+    ran in (``parent``, None for an outermost span) and of the outermost
+    one (``request``: the spans of one command share it), its ``depth``
+    below that, and the bytes it moved (``nbytes``, None when it counts
+    none; the code may set it inside the block)."""
+
+    __slots__ = ("id", "name", "parent", "request", "depth", "start_ns", "end_ns", "nbytes",
+                 "_range")
+
+    def __init__(self, name: str, nbytes: Optional[int] = None):
+        self.name, self.nbytes = name, nbytes
+        self._range = None
+
+    def __enter__(self) -> "Span":
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.id = next(_ids)
+        if stack:
+            self.parent, self.request = stack[-1].id, stack[0].id
+        else:
+            self.parent, self.request = None, self.id
+        self.depth = len(stack)
+        stack.append(self)
+        if _tracing:
+            self._range = torch.profiler.record_function(f"hgi.{self.name}")
+            self._range.__enter__()
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        _open.stack.pop()
+        ring = _ring
+        if ring is not None:
+            ring.append(self)
+        return False
+
+
+class _NoSpan:
+    """The shared context :func:`span` returns while nothing records: it
+    does nothing, and drops the bytes the code sets on it."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    @property
+    def nbytes(self) -> None:
+        return None
+
+    @nbytes.setter
+    def nbytes(self, value) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, nbytes: Optional[int] = None):
+    """A context that records the block as the :class:`Span` ``name``,
+    with the bytes it moved (``nbytes``, or set on the span inside the
+    block).  While no ring is kept and no :func:`trace` runs it is one
+    shared context that does nothing.  Inside :func:`trace`, and only
+    there, the span is also a ``torch.profiler`` range ``hgi.<name>``."""
+    if not _active:
+        return _NO_SPAN
+    return Span(name, nbytes)
+
+
+def enable_spans(capacity: int = SPAN_CAPACITY) -> None:
+    """Keep the finished spans of every thread in a ring of ``capacity``
+    (the oldest go first); a new ring replaces the old one."""
+    global _ring
+    if capacity < 1:
+        raise ValueError(f"capacity must be at least 1, got {capacity}")
+    _ring = collections.deque(maxlen=capacity)
+    _refresh()
+
+
+def disable_spans() -> None:
+    """Stop keeping spans and drop the ring."""
+    global _ring
+    _ring = None
+    _refresh()
+
+
+def spans(since_ns: Optional[int] = None) -> List[Span]:
+    """The ring's spans in the order they ended (empty while it is off),
+    those that started at ``since_ns`` or later when it is given."""
+    kept = list(_ring) if _ring is not None else []
+    if since_ns is None:
+        return kept
+    return [s for s in kept if s.start_ns >= since_ns]
+
+
+def self_ns(records: Iterable[Span]) -> Dict[int, int]:
+    """Each span's self time by id: its duration less its children's
+    among ``records`` (a span's children ran one after another in its
+    thread, so they do not overlap)."""
+    records = list(records)
+    out = {s.id: s.end_ns - s.start_ns for s in records}
+    for s in records:
+        if s.parent in out:
+            out[s.parent] -= s.end_ns - s.start_ns
+    return out
 
 
 @contextlib.contextmanager
@@ -36,8 +181,11 @@ def trace(log_dir: Optional[str], device: str = "cuda"):
             codec.encode_plane(batch)
 
     ``device="cuda"`` without a card raises: it never traces the host alone
-    in its place.
+    in its place.  Inside the block every :func:`span` is also a range
+    ``hgi.<name>``, so the trace shows the program's stages over the
+    kernels.
     """
+    global _tracing
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         if not torch.cuda.is_available():
@@ -46,9 +194,15 @@ def trace(log_dir: Optional[str], device: str = "cuda"):
     if log_dir is not None:
         os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
-        yield prof
-        if ProfilerActivity.CUDA in activities:
-            torch.cuda.synchronize()
+        _tracing += 1
+        _refresh()
+        try:
+            yield prof
+            if ProfilerActivity.CUDA in activities:
+                torch.cuda.synchronize()
+        finally:
+            _tracing -= 1
+            _refresh()
     if log_dir is not None:
         prof.export_chrome_trace(
             os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
@@ -58,6 +212,19 @@ def trace(log_dir: Optional[str], device: str = "cuda"):
 def _sync() -> None:
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+def device_averages(prof) -> list:
+    """The card's records of a :func:`trace`, summed by name
+    (``prof.key_averages()`` on the card with self time): its kernels,
+    copies and memsets.  A span's range inside the trace leaves a mark on
+    the card's row whose self time is the whole range; those marks are
+    left out, so the sum is the work the card did."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False) and not e.key.startswith("hgi.")]
 
 
 class StageTimer:

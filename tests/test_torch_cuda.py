@@ -621,6 +621,37 @@ def test_fast_launch_counters(cuda):
     assert after == (before[0] + 1, before[1] + 1, before[2] + 1)
 
 
+def test_traced_device_time_leaves_out_the_spans_ranges(cuda):
+    # Inside trace() every span is also a range, marked on the card's row
+    # with its whole length; the device time read there is the same work,
+    # launch for launch, as under a bare profile, which enters no range.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rustyhgi_tpu_torch import bench
+    from rustyhgi_tpu_torch.utils import profiling
+
+    images = np.stack([_image((256, 256), seed=s) // 4 for s in range(32)])
+    codec = HGICodec(4, "lossless", backend="cuda")
+    fn = lambda: codec.write_fast_batch(images)  # noqa: E731
+    traced = bench.device_trace(fn, cuda)
+    with profiling.trace(None, "cuda") as prof:
+        for _ in range(bench.REPEATS):
+            fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as bare:
+        for _ in range(bench.REPEATS):
+            fn()
+        torch.cuda.synchronize()
+    plain = {e.key: e for e in bare.key_averages()
+             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    assert any("rans_encode_lanes" in k for k in plain)  # keys are the kernels' signatures
+    assert set(traced) == set(plain)
+    assert {e.key: e.count for e in profiling.device_averages(prof)} == {
+        k: e.count for k, e in plain.items()}
+    want = sum(e.self_device_time_total for e in plain.values()) / bench.REPEATS / 1e6
+    assert sum(traced.values()) == pytest.approx(want, rel=0.5)
+
+
 @pytest.mark.parametrize("preset", ["lossless", "medium"])
 def test_codec_write_fast_backends_agree(cuda, preset):
     images = np.stack([_image((135, 240), seed=s) // 4 for s in range(3)])

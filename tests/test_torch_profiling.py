@@ -71,6 +71,25 @@ def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     assert len(prof.key_averages()) > 0
 
 
+def test_device_averages_leave_out_the_spans_marks_on_the_card():
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def avg(key, device_type=DeviceType.CUDA, self_us=5.0, **kw):
+        return SimpleNamespace(key=key, device_type=device_type, self_device_time_total=self_us,
+                               **kw)
+
+    kept = [avg("encode_lossless"), avg("Memcpy HtoD (Pageable -> Device)"),
+            avg("Memset (Device)", is_user_annotation=False)]
+    events = [*kept, avg("hgi.codec.h2d", self_us=900.0),
+              avg("hgi.tiles.chunk", self_us=900.0, is_user_annotation=True),
+              avg("a range", self_us=900.0, is_user_annotation=True),
+              avg("aten::mul", DeviceType.CPU), avg("idle kernel", self_us=0.0)]
+    prof = SimpleNamespace(key_averages=lambda: events)
+    assert profiling.device_averages(prof) == kept
+
+
 def test_trace_without_a_directory_writes_nothing(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with profiling.trace(None, device="cpu") as prof:
@@ -97,3 +116,80 @@ def test_stage_clock_times_named_functions_and_puts_them_back():
         assert mod.slow(1) == 2 and mod.slow(2) == 3
     assert (mod.slow, mod.fast) == originals
     assert spent["slow"] >= 0.02 and spent["fast"] == 0.0
+
+
+# -- the span recorder ----------------------------------------------------------
+
+
+@pytest.fixture
+def recorder():
+    profiling.enable_spans()
+    try:
+        yield profiling
+    finally:
+        profiling.disable_spans()
+
+
+def test_spans_nest_with_their_parent_and_request(recorder):
+    with profiling.span("cli.encode_tiled") as root:
+        with profiling.span("tiles.chunk") as chunk:
+            with profiling.span("codec.h2d", 64) as h2d:
+                pass
+            with profiling.span("codec.fetch_words") as fetch:
+                fetch.nbytes = 10
+    with profiling.span("cli.encode_tiled") as other:
+        pass
+    got = profiling.spans()
+    assert [s.name for s in got] == ["codec.h2d", "codec.fetch_words", "tiles.chunk",
+                                     "cli.encode_tiled", "cli.encode_tiled"]
+    assert (root.parent, chunk.parent, h2d.parent, fetch.parent) == (None, root.id, chunk.id,
+                                                                      chunk.id)
+    assert {s.request for s in got[:4]} == {root.id} and other.request == other.id != root.id
+    assert [s.depth for s in got] == [2, 2, 1, 0, 0]
+    assert (h2d.nbytes, fetch.nbytes, chunk.nbytes) == (64, 10, None)
+    assert root.start_ns <= chunk.start_ns <= h2d.start_ns <= h2d.end_ns <= fetch.start_ns
+    assert fetch.end_ns <= chunk.end_ns <= root.end_ns <= other.start_ns
+    assert profiling.spans(since_ns=other.start_ns) == [other]
+
+
+def test_a_span_that_raises_is_recorded_and_closed(recorder):
+    with pytest.raises(ValueError):
+        with profiling.span("codec.frame"):
+            raise ValueError("bad block")
+    with profiling.span("codec.frame") as after:
+        pass
+    assert [s.name for s in profiling.spans()] == ["codec.frame"] * 2
+    assert after.parent is None and after.depth == 0
+
+
+@pytest.mark.parametrize("capacity", [1, 3, 8])
+def test_the_ring_keeps_the_newest_spans(recorder, capacity):
+    profiling.enable_spans(capacity)
+    for i in range(10):
+        with profiling.span(f"s{i}"):
+            pass
+    assert [s.name for s in profiling.spans()] == [f"s{i}" for i in range(10 - capacity, 10)]
+    with pytest.raises(ValueError, match="capacity"):
+        profiling.enable_spans(0)
+
+
+def test_self_time_is_the_duration_less_the_children():
+    def made(i, parent, a, b):
+        s = profiling.Span(f"s{i}")
+        s.id, s.parent, s.start_ns, s.end_ns = i, parent, a, b
+        return s
+
+    records = [made(1, None, 0, 1000), made(2, 1, 100, 400), made(3, 1, 500, 700),
+               made(4, 2, 150, 250), made(5, 99, 0, 50)]
+    assert profiling.self_ns(records) == {1: 500, 2: 200, 3: 200, 4: 100, 5: 50}
+
+
+def test_off_records_nothing_and_returns_one_shared_context():
+    assert profiling.spans() == []
+    a, b = profiling.span("codec.h2d", 5), profiling.span("tiles.write")
+    assert a is b
+    with a as s:
+        s.nbytes = 123  # dropped
+    assert s.nbytes is None and profiling.spans() == []
+    assert not hasattr(s, "__dict__")
+

@@ -5,6 +5,7 @@ devices of ``tests/conftest.py``); the port's on meshes of 1, 2 and 4
 CPU devices.  Every comparison is exact.
 """
 
+import collections
 import os
 import struct
 
@@ -22,6 +23,7 @@ from rustyhgi_tpu_torch.ops.quantizers import QuantizationLevel
 from rustyhgi_tpu_torch.parallel import mesh as tm
 from rustyhgi_tpu_torch.parallel import sharded as ts
 from rustyhgi_tpu_torch.utils import container as tc
+from rustyhgi_tpu_torch.utils import profiling
 from rustyhgi_tpu_torch.utils.imageio import load_luma, save_gray
 
 CPU = ["--device", "cpu"]
@@ -281,6 +283,82 @@ def test_encode_tiled_bytes_do_not_depend_on_the_mesh(plane_png, mesh):
     assert main(["encode-tiled", "-i", plane_png, "-o", "one.thgit", *flags]) == 0
     assert main(["encode-tiled", "-i", plane_png, "-o", "mesh.thgit", "--mesh", mesh, *flags]) == 0
     assert _read("mesh.thgit") == _read("one.thgit")
+
+
+# -- the program's spans over encode-tiled --fast ------------------------------
+
+
+@pytest.fixture
+def recorder():
+    profiling.enable_spans()
+    try:
+        yield profiling
+    finally:
+        profiling.disable_spans()
+
+
+@pytest.mark.parametrize("tile", (16, 32))
+def test_encode_tiled_fast_records_its_stages(plane_png, recorder, tile):
+    flags = ["--tile", str(tile), "--format", "thgi", "--fast", *CPU]
+    assert main(["encode-tiled", "-i", plane_png, "-o", "on.thgit", *flags]) == 0
+    got = profiling.spans()
+    profiling.disable_spans()
+    assert main(["encode-tiled", "-i", plane_png, "-o", "off.thgit", *flags]) == 0
+    data = _read("on.thgit")
+    assert data == _read("off.thgit")
+    n = -(-100 // tile) * -(-90 // tile)
+    chunks = -(-n // 32)  # the command's chunks of tiles
+    per_chunk = ("tiles.chunk", "codec.h2d", "codec.k1_launch", "codec.x1_launch",
+                 "codec.fetch_heads", "codec.fetch_words", "codec.frame")
+    want = {"cli.encode_tiled": 1, "cli.load": 1, "tiles.split": 1, "tiles.frame": n,
+            "tiles.write": n + 1}  # each block's, and the header's
+    want.update({name: chunks for name in per_chunk})
+    assert collections.Counter(s.name for s in got) == want
+    root = next(s for s in got if s.name == "cli.encode_tiled")
+    assert {s.request for s in got} == {root.id}
+    ids = {s.id: s.name for s in got}
+    for s in got:
+        parent = ids.get(s.parent)
+        if s.name.startswith("codec.") or s.name in ("tiles.frame", "tiles.write"):
+            assert parent in ("tiles.chunk", "cli.encode_tiled")
+        elif s is not root:
+            assert parent == "cli.encode_tiled"
+
+    def nbytes(name):
+        return sum(s.nbytes for s in got if s.name == name)
+
+    assert nbytes("codec.h2d") == n * tile * tile  # the tiles came from the host
+    assert nbytes("tiles.write") == len(data)
+    assert nbytes("tiles.frame") == len(data) - _block_offsets(data)[0] - 12 * n
+    # Tables, counts and states of every tile; the coded words, u16 each
+    # (none at all where each lane's state holds its few symbols).
+    assert nbytes("codec.fetch_heads") > 0 and nbytes("codec.fetch_words") % 2 == 0
+
+
+@pytest.mark.parametrize("recorded", (True, False), ids=("recorder-on", "recorder-off"))
+def test_program_ranges_enter_a_profile_only_inside_trace(plane_png, recorded):
+    from torch.profiler import ProfilerActivity, profile
+
+    flags = ["--tile", "32", "--format", "thgi", "--fast", *CPU]
+    if recorded:
+        profiling.enable_spans()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            assert main(["encode-tiled", "-i", plane_png, "-o", "a.thgit", *flags]) == 0
+        assert not [e.name for e in prof.events() if e.name.startswith("hgi.")]
+        with profiling.trace(None, device="cpu") as prof:
+            assert main(["encode-tiled", "-i", plane_png, "-o", "b.thgit", *flags]) == 0
+        names = collections.Counter(e.name for e in prof.events() if e.name.startswith("hgi."))
+        assert names["hgi.cli.encode_tiled"] == 1 and names["hgi.tiles.frame"] == 12
+        assert {"hgi.tiles.split", "hgi.tiles.chunk", "hgi.codec.h2d", "hgi.codec.frame",
+                "hgi.tiles.write"} <= set(names)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:  # and none after it
+            assert main(["encode-tiled", "-i", plane_png, "-o", "c.thgit", *flags]) == 0
+        assert not [e.name for e in prof.events() if e.name.startswith("hgi.")]
+    finally:
+        profiling.disable_spans()
+    assert _read("a.thgit") == _read("b.thgit") == _read("c.thgit")
+    assert len(profiling.spans()) == 0
 
 
 def _block_offsets(data):
