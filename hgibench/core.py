@@ -2,13 +2,15 @@
 
 from __future__ import annotations
 
+import resource
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-__all__ = ["Request", "Window", "Tracer", "rng", "wait_until"]
+__all__ = ["Request", "Window", "WindowUsage", "Tracer", "rng", "usage", "wait_until"]
 
 
 def rng(seed: int, stream: int) -> np.random.Generator:
@@ -27,6 +29,43 @@ def wait_until(t: float) -> None:
         time.sleep(left - SPIN_S)
     while time.perf_counter() < t:
         pass
+
+
+def usage() -> Dict[str, float]:
+    """CPU seconds (user, sys) of this process, every thread of it, and of
+    the child processes it has reaped so far."""
+    own = resource.getrusage(resource.RUSAGE_SELF)
+    reaped = resource.getrusage(resource.RUSAGE_CHILDREN)
+    return {"user_s": own.ru_utime + reaped.ru_utime, "sys_s": own.ru_stime + reaped.ru_stime}
+
+
+class WindowUsage:
+    """:func:`usage` over a window: read at its start and, by a timer
+    thread, at its close, ``seconds`` later, while the request cut by the
+    close still runs.  A child reaped after the close, as the output's
+    drain and the check's workers are, stays out."""
+
+    def __init__(self, seconds: float):
+        self.seconds = seconds
+
+    def start(self) -> None:
+        self.t0 = time.perf_counter()
+        self.first = usage()
+        self._timer = threading.Timer(self.seconds, self._close)
+        self._timer.daemon = True
+        self._timer.start()
+
+    def _close(self) -> None:
+        self.last = usage()
+        self.read_at_s = time.perf_counter() - self.t0
+
+    def stop(self) -> Dict[str, float]:
+        """The window's deltas, and ``read_at_s``, when the close was read;
+        waits for the timer."""
+        self._timer.join()
+        out = {k: self.last[k] - self.first[k] for k in self.first}
+        out["read_at_s"] = self.read_at_s
+        return out
 
 
 @dataclass
@@ -52,14 +91,16 @@ class Request:
 @dataclass
 class Window:
     """A measured window: ``t0`` on the host clock, its length, every
-    request due in it (times relative to ``t0``), and the results kept for
-    the check, by request index."""
+    request due in it (times relative to ``t0``), the results kept for
+    the check, by request index, and where the closed loop reads it, the
+    process's :class:`WindowUsage` deltas."""
 
     t0: float
     seconds: float
     requests: List[Request]
     kept: Dict[int, Any]
     errors: List[str] = field(default_factory=list)
+    usage: Optional[Dict[str, float]] = None
 
     @property
     def attempted(self) -> int:

@@ -8,7 +8,8 @@ the metrics read which requests, or which part of one, ended inside the
 window.  Where the entry has ``account``, each served request records its
 bytes and pixels.  Where the mix gives ``sample``, the results kept for
 the check are that many requests, a reservoir sample drawn from the
-seed; otherwise every result is kept.
+seed; otherwise every result is kept.  The process's CPU seconds are
+read at the window's start and close (``WindowUsage``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import traceback
 
 import numpy as np
 
-from ..core import Request, Window, rng
+from ..core import Request, Window, WindowUsage, rng
 
 __all__ = ["Reservoir", "run"]
 
@@ -51,9 +52,11 @@ class Reservoir:
         return dict(sorted(s for s in self.slots if s is not None))
 
 
-def _loop(entry, state, pool: int, seconds: float, tracer, keep, account):
+def _loop(entry, state, pool: int, seconds: float, tracer, keep, account, usage=None):
     requests, errors = [], []
     t0 = time.perf_counter()
+    if usage is not None:
+        usage.start()
     i = 0
     while True:
         now = time.perf_counter() - t0
@@ -96,11 +99,12 @@ def run(entry, state, mix: dict, seed: int, seconds: float, tracer=None, log=pri
     else:
         reservoir, kept = None, {}
         keep = kept.__setitem__
-    t0, requests, errors = _loop(entry, state, pool, seconds, tracer, keep, account)
+    usage = WindowUsage(seconds)
+    t0, requests, errors = _loop(entry, state, pool, seconds, tracer, keep, account, usage)
     if reservoir is not None:
         kept = reservoir.kept
     took = sorted(r.service for r in requests)
     log(f"closed loop: {len(requests)} requests over {seconds} s, last ended {requests[-1].end:.3f} "
         f"s in; request ms min {1e3 * took[0]:.3f} median {1e3 * took[len(took) // 2]:.3f} "
         f"max {1e3 * took[-1]:.3f}")
-    return Window(t0, seconds, requests, kept, errors)
+    return Window(t0, seconds, requests, kept, errors, usage.stop())

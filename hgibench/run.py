@@ -10,8 +10,10 @@ what the program returned against the plain reference in
 ``hgibench/reference``, and prints one JSON line last on standard output:
 ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer ones),
-``device``, with ``--trace 1`` a ``breakdown``, and last ``checks``, each
-number compared with its limit, which also end standard error.
+``device``, with ``--trace 1`` a ``breakdown``, where the closed loop
+reads it ``usage`` (the process's CPU seconds, user and sys, over the
+window), and last ``checks``, each number compared with its limit, which
+also end standard error.
 
 Without CUDA, or with fewer cards than the cell asks for, it exits 2 and
 prints no result; with JAX or the JAX package loaded once the window has
@@ -186,6 +188,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     if shown is not None and shown.window is not None:  # else the last slice, which lost records
         dev["busy_s"] = shown.busy_s
         dev["window_s"] = shown.window_s
+    if window.usage is not None:
+        result["usage"] = window.usage
     result["checks"] = {name: {"value": value, "limit": limit} for name, value, limit in checks}
     return result
 
