@@ -1,0 +1,11 @@
+"""Host ms a scene spends in the ctx coder's jobs, ``coder.ctx`` (and
+``coder.ctx_mt``, whose payloads a 512 x 512 tile never reaches), summed
+over the threads of the race's pool.  Over the window's served scenes,
+the one its close cut run to its end among them
+(``spans.per_request_ms``)."""
+
+from hgibench import spans
+
+
+def read(ctx):
+    return spans.per_request_ms(ctx, ("coder.ctx", "coder.ctx_mt"))

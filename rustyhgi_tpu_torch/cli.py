@@ -306,7 +306,10 @@ def cmd_encode_tiled(args) -> int:
     block a tile in row-major tile order, each framed with its length and
     CRC32 and flushed as it is written, so that an interrupted job leaves
     a prefix ``--resume`` continues.  The command is the span
-    ``cli.encode_tiled``; the ``--fast`` path's stages are spans in it.
+    ``cli.encode_tiled`` and the stages of both paths are spans in it;
+    without ``--fast``, ``tiles.encode`` (the batch's grids),
+    ``tiles.fetch`` (their copy to the host) and, a block each,
+    ``tiles.race`` (``write_archive``), ``tiles.frame`` and ``tiles.write``.
     """
     with span("cli.encode_tiled"):
         return _encode_tiled(args)
@@ -400,11 +403,14 @@ def _encode_tiled(args) -> int:
     # moves to the CPU or to the plain version.
     for attempt in (1, 2):
         try:
-            grids, _, _ = encode_batch_sharded(
-                padded, args.level, quant, mesh=mesh, predictor=args.predictor,
-                engine=args.engine,
-            )
-            grids_host = grids[: remaining.shape[0]].cpu().numpy()
+            with span("tiles.encode"):
+                grids, _, _ = encode_batch_sharded(
+                    padded, args.level, quant, mesh=mesh, predictor=args.predictor,
+                    engine=args.engine,
+                )
+            with span("tiles.fetch") as sp:
+                grids_host = grids[: remaining.shape[0]].cpu().numpy()
+                sp.nbytes = grids_host.nbytes
             break
         except Exception as e:
             if attempt == 2:
@@ -418,11 +424,19 @@ def _encode_tiled(args) -> int:
 
     with open(args.output, mode) as f:
         if mode == "wb":
-            f.write(thgit2_header(args.tile, w, h, n_tiles, freqs))
+            header = thgit2_header(args.tile, w, h, n_tiles, freqs)
+            with span("tiles.write", len(header)):
+                f.write(header)
         meta = codec.metadata_for(args.tile, args.tile)
         for grid in grids_host:
-            f.write(thgit2_block_frame(write_archive(Archive(meta, grid), args.format, freqs=freqs)))
-            f.flush()  # a valid resumable prefix at every block
+            with span("tiles.race") as sp:
+                b = write_archive(Archive(meta, grid), args.format, freqs=freqs)
+                sp.nbytes = len(b)
+            with span("tiles.frame", len(b)):
+                block = thgit2_block_frame(b)
+            with span("tiles.write", len(block)):
+                f.write(block)
+                f.flush()  # a valid resumable prefix at every block
     return 0
 
 

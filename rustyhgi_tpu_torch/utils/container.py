@@ -48,6 +48,7 @@ or ``.thgi`` block in row-major tile order (:func:`thgit2_header`,
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import struct
 import threading
@@ -60,6 +61,7 @@ from ..dyadic import cdiv, effective_levels, subband_shapes
 from ..ops import bitpack, ctxcoder, native, tpurans
 from ..ops.entropy import rans_decode, rans_encode
 from ..ops.quantizers import QuantizationLevel
+from .profiling import carry, span
 
 __all__ = [
     "HGI_MAGIC",
@@ -70,6 +72,7 @@ __all__ = [
     "write_hgi",
     "read_hgi",
     "write_thgi",
+    "RACE_WINS",
     "read_thgi",
     "read_thgi_payload",
     "read_thgi_subbands",
@@ -431,6 +434,20 @@ _CODEC_NAMES = {
 }
 
 
+# The span of a candidate job, by codec tag: coder.<codec name>.
+_CODER_SPANS = {tag: f"coder.{name}" for name, tag in _CODEC_NAMES.items()}
+
+# Races won, by (layout tag, codec tag): one count for each write_thgi
+# call outside the fast mode.  Clear it to start a count afresh.
+RACE_WINS: collections.Counter = collections.Counter()
+_WINS_LOCK = threading.Lock()
+
+
+def _coded(name: str, nbytes: int, fn):
+    with span(name, nbytes):
+        return fn()
+
+
 def write_thgi(
     archive: Archive,
     layouts=("rowmajor", "subband"),
@@ -446,7 +463,10 @@ def write_thgi(
     then the ctx coder.  The subband payload is built from the cropped
     grid (:func:`split_grid_np`), so its padding holds 0.  The ctx
     candidate races only where the native coder is present (the Python
-    coder would take minutes), unless ``codecs`` asks for it.
+    coder would take minutes), unless ``codecs`` asks for it.  Each job
+    is the span ``coder.<codec>`` on the pool's thread, a child of the
+    caller's open span; outside the fast mode the winner is counted in
+    :data:`RACE_WINS`.
 
     ``codecs`` restricts the candidates to names of ``_CODEC_NAMES``;
     ``freqs`` (u16[256] summing to 2**14, from
@@ -482,7 +502,9 @@ def write_thgi(
         for tag, fn in _entropy_candidate_jobs(raw, fast, allowed, freqs, device):
             jobs.append((_LAYOUT_ROWMAJOR, tag, len(raw), fn))
     if "subband" in layouts and archive.metadata.scale_level > 0:
-        raw = _subband_payload(archive)
+        with span("thgi.payload") as sp:
+            raw = _subband_payload(archive)
+            sp.nbytes = len(raw)
         for tag, fn in _entropy_candidate_jobs(raw, fast, allowed, freqs, device):
             jobs.append((_LAYOUT_SUBBAND, tag, len(raw), fn))
         if not fast and (keep(_CODEC_CTX) or keep(_CODEC_CTX_MT)) and (
@@ -501,22 +523,27 @@ def write_thgi(
                 jobs.append((_LAYOUT_SUBBAND, _CODEC_CTX, len(raw),
                              lambda: ctxcoder.ctx_encode(raw, pieces, shift)))
 
+    pool, coded = _candidate_pool(), carry(_coded)
     futures = [
-        (layout, tag, raw_len, _candidate_pool().submit(fn))
+        (layout, tag, raw_len, pool.submit(coded, _CODER_SPANS[tag], raw_len, fn))
         for layout, tag, raw_len, fn in jobs
     ]
     candidates = []
-    for layout, tag, raw_len, fut in futures:
-        try:
-            candidates.append((layout, tag, raw_len, fut.result()))
-        except ValueError:
-            pass  # this coder cannot take the payload; the others still race
-        except RuntimeError:
-            if fast:
-                raise  # the device coder failed (a CUDA error): not a refusal
+    with span("thgi.wait"):
+        for layout, tag, raw_len, fut in futures:
+            try:
+                candidates.append((layout, tag, raw_len, fut.result()))
+            except ValueError:
+                pass  # this coder cannot take the payload; the others still race
+            except RuntimeError:
+                if fast:
+                    raise  # the device coder failed (a CUDA error): not a refusal
     if not candidates:
         raise ValueError(f"no valid candidates for layouts={layouts!r} codecs={codecs!r}")
     layout, tag, raw_len, body = min(candidates, key=lambda c: len(c[3]))
+    if not fast:
+        with _WINS_LOCK:
+            RACE_WINS[layout, tag] += 1
     return _thgi_frame(archive.metadata, layout, tag, raw_len, body)
 
 

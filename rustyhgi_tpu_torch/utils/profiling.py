@@ -7,9 +7,11 @@ Counterpart of ``rustyhgi_tpu/utils/profiling.py``:
   into a directory as a Chrome trace (Perfetto, ``chrome://tracing``),
   the program's spans shown over the kernels;
 * :func:`span` marks a stage of the program (the tiled loop, the codec's
-  copies, launches, fetches and framing); :func:`enable_spans` keeps the
-  spans in a bounded ring that :func:`spans` reads, with the bytes each
-  moved, and :func:`self_ns` gives each span's self time;
+  copies, launches, fetches and framing, the ``.thgi`` race and its
+  coders); :func:`enable_spans` keeps the spans in a bounded ring that
+  :func:`spans` reads, with the bytes each moved, :func:`carry` runs a
+  job handed to a thread pool under the span that handed it over, and
+  :func:`self_ns` gives each span's self time;
 * :func:`device_averages` reads a trace's kernels, copies and memsets
   on the card, without the spans' marks there;
 * :class:`StageTimer` accumulates named stage times and derives rates,
@@ -33,7 +35,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 __all__ = [
-    "trace", "device_averages", "span", "enable_spans", "disable_spans", "spans", "self_ns", "Span",
+    "trace", "device_averages", "span", "carry", "enable_spans", "disable_spans", "spans",
+    "self_ns", "Span",
     "StageTimer", "stage_clock", "codec_metrics", "psnr",
 ]
 
@@ -58,11 +61,13 @@ class Span:
     ``end_ns`` on ``time.perf_counter_ns()``, the ``id`` of the span it
     ran in (``parent``, None for an outermost span) and of the outermost
     one (``request``: the spans of one command share it), its ``depth``
-    below that, and the bytes it moved (``nbytes``, None when it counts
-    none; the code may set it inside the block)."""
+    below that, whether it ran on another thread than its request's
+    outermost span (``thread``: a job :func:`carry` handed to a pool), and
+    the bytes it moved (``nbytes``, None when it counts none; the code may
+    set it inside the block)."""
 
-    __slots__ = ("id", "name", "parent", "request", "depth", "start_ns", "end_ns", "nbytes",
-                 "_range")
+    __slots__ = ("id", "name", "parent", "request", "depth", "thread", "start_ns", "end_ns",
+                 "nbytes", "_range")
 
     def __init__(self, name: str, nbytes: Optional[int] = None):
         self.name, self.nbytes = name, nbytes
@@ -74,10 +79,11 @@ class Span:
             stack = _open.stack = []
         self.id = next(_ids)
         if stack:
-            self.parent, self.request = stack[-1].id, stack[0].id
+            top = stack[-1]
+            self.parent, self.request = top.id, top.request
+            self.depth, self.thread = top.depth + 1, top.thread
         else:
-            self.parent, self.request = None, self.id
-        self.depth = len(stack)
+            self.parent, self.request, self.depth, self.thread = None, self.id, 0, False
         stack.append(self)
         if _tracing:
             self._range = torch.profiler.record_function(f"hgi.{self.name}")
@@ -132,6 +138,39 @@ def span(name: str, nbytes: Optional[int] = None):
     return Span(name, nbytes)
 
 
+class _Carried:
+    """The submitter's open span as a pool thread's base: what a span
+    opened on that thread takes from its parent."""
+
+    __slots__ = ("id", "request", "depth", "thread")
+
+    def __init__(self, top: Span):
+        self.id, self.request, self.depth, self.thread = top.id, top.request, top.depth, True
+
+
+def carry(fn):
+    """``fn`` to hand to a thread pool: run there, its spans have the span
+    open here as their parent, this command's request, and ``thread``
+    True.  While no span records, or outside any span, it is ``fn``
+    itself, so the submit costs one flag check."""
+    if not _active:
+        return fn
+    stack = getattr(_open, "stack", None)
+    if not stack:
+        return fn
+    base = _Carried(stack[-1])
+
+    def carried(*args, **kwargs):
+        saved = getattr(_open, "stack", None)
+        _open.stack = [base]
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _open.stack = saved
+
+    return carried
+
+
 def enable_spans(capacity: int = SPAN_CAPACITY) -> None:
     """Keep the finished spans of every thread in a ring of ``capacity``
     (the oldest go first); a new ring replaces the old one."""
@@ -159,14 +198,25 @@ def spans(since_ns: Optional[int] = None) -> List[Span]:
 
 
 def self_ns(records: Iterable[Span]) -> Dict[int, int]:
-    """Each span's self time by id: its duration less its children's
-    among ``records`` (a span's children ran one after another in its
-    thread, so they do not overlap)."""
+    """Each span's self time by id: its duration less the union of its
+    children's intervals among ``records``, each cut to the span's own.
+    Children on pool threads (:func:`carry`) overlap one another; time in
+    which any child ran is not the span's own."""
     records = list(records)
-    out = {s.id: s.end_ns - s.start_ns for s in records}
+    ids = {s.id for s in records}
+    children: Dict[int, list] = {}
     for s in records:
-        if s.parent in out:
-            out[s.parent] -= s.end_ns - s.start_ns
+        if s.parent in ids:
+            children.setdefault(s.parent, []).append((s.start_ns, s.end_ns))
+    out = {}
+    for s in records:
+        covered, reach = 0, s.start_ns
+        for a, b in sorted(children.get(s.id, ())):
+            a, b = max(a, reach), min(b, s.end_ns)
+            if b > a:
+                covered += b - a
+                reach = b
+        out[s.id] = s.end_ns - s.start_ns - covered
     return out
 
 

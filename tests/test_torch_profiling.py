@@ -184,6 +184,99 @@ def test_self_time_is_the_duration_less_the_children():
     assert profiling.self_ns(records) == {1: 500, 2: 200, 3: 200, 4: 100, 5: 50}
 
 
+def _made(i, parent, a, b):
+    s = profiling.Span(f"s{i}")
+    s.id, s.parent, s.start_ns, s.end_ns = i, parent, a, b
+    return s
+
+
+@pytest.mark.parametrize("children, own", [
+    ([(100, 400), (300, 700)], 400),  # two that overlap: their union is 600
+    ([(100, 400), (150, 250), (500, 700)], 500),  # one inside another
+    ([(-50, 200), (900, 1300)], 700),  # cut to the parent's interval
+    ([(100, 900), (100, 900), (100, 900), (100, 900)], 200),  # four pool threads at once
+], ids=["overlap", "nested", "outside", "four-at-once"])
+def test_self_time_leaves_out_the_union_of_overlapping_children(children, own):
+    records = [_made(1, None, 0, 1000)]
+    records += [_made(i + 2, 1, a, b) for i, (a, b) in enumerate(children)]
+    got = profiling.self_ns(records)
+    assert got[1] == own
+    assert all(got[i + 2] == b - a for i, (a, b) in enumerate(children))
+
+
+def test_a_job_on_a_pool_runs_its_spans_under_the_submitter(recorder):
+    from concurrent.futures import ThreadPoolExecutor
+
+    def job(k):
+        with profiling.span("coder.rans", k) as inner:
+            with profiling.span("coder.inner"):
+                pass
+        return inner
+
+    with ThreadPoolExecutor(2) as pool:
+        with profiling.span("cli.encode_tiled") as root:
+            with profiling.span("tiles.race") as race:
+                jobs = [pool.submit(profiling.carry(job), k) for k in range(4)]
+                spans = [f.result() for f in jobs]
+            with profiling.span("tiles.frame") as after:
+                pass
+        outside = pool.submit(profiling.carry(job), 9).result()
+    for k, s in enumerate(spans):
+        assert (s.parent, s.request, s.depth, s.thread, s.nbytes) == (race.id, root.id, 2, True, k)
+    inner = [s for s in profiling.spans() if s.name == "coder.inner"]
+    assert len(inner) == 5 and {s.parent for s in inner[:4]} == {s.id for s in spans}
+    assert all(s.thread and s.depth == 3 and s.request == root.id for s in inner[:4])
+    assert not (root.thread or race.thread or after.thread) and after.parent == root.id
+    # Submitted outside any span, a job's spans are its own requests.
+    assert (outside.parent, outside.request, outside.thread) == (None, outside.id, False)
+
+
+def test_a_carried_job_leaves_the_pool_thread_as_it_found_it(recorder):
+    from concurrent.futures import ThreadPoolExecutor
+
+    def fails():
+        with profiling.span("coder.ctx"):
+            raise ValueError("refused")
+
+    def job():
+        with profiling.span("coder.rans") as s:
+            pass
+        return s
+
+    with ThreadPoolExecutor(1) as pool:
+        with profiling.span("tiles.race") as race:
+            with pytest.raises(ValueError):
+                pool.submit(profiling.carry(fails)).result()
+            carried = pool.submit(profiling.carry(job)).result()
+        alone = pool.submit(profiling.carry(job)).result()  # outside any span
+    assert (carried.parent, carried.thread) == (race.id, True)
+    assert (alone.parent, alone.request, alone.depth, alone.thread) == (None, alone.id, 0, False)
+    failed = next(s for s in profiling.spans() if s.name == "coder.ctx")
+    assert failed.parent == race.id and failed.end_ns >= failed.start_ns
+
+
+def test_off_the_submit_path_hands_over_the_job_itself_and_allocates_nothing():
+    import tracemalloc
+
+    def job():
+        return 1
+
+    assert profiling.carry(job) is job
+    with profiling.span("tiles.race"):
+        assert profiling.carry(job) is job
+    tracemalloc.start()
+    try:
+        before = tracemalloc.take_snapshot()
+        for _ in range(1000):
+            profiling.carry(job)
+        after = tracemalloc.take_snapshot()
+    finally:
+        tracemalloc.stop()
+    mine = [tracemalloc.Filter(True, profiling.__file__)]
+    grown = after.filter_traces(mine).compare_to(before.filter_traces(mine), "lineno")
+    assert sum(d.size_diff for d in grown) == 0
+
+
 def test_off_records_nothing_and_returns_one_shared_context():
     assert profiling.spans() == []
     a, b = profiling.span("codec.h2d", 5), profiling.span("tiles.write")

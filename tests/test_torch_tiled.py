@@ -335,6 +335,68 @@ def test_encode_tiled_fast_records_its_stages(plane_png, recorder, tile):
     assert nbytes("codec.fetch_heads") > 0 and nbytes("codec.fetch_words") % 2 == 0
 
 
+CODERS = {"coder.deflate": 4, "coder.rans": 2, "coder.ctx": 1}  # jobs a tile's race
+
+
+@pytest.mark.parametrize("tile", (16, 32))
+def test_encode_tiled_race_records_its_stages(plane_png, recorder, tile):
+    from rustyhgi_tpu_torch.ops import native
+
+    flags = ["--tile", str(tile), "--format", "thgi", *CPU]
+    assert main(["encode-tiled", "-i", plane_png, "-o", "on.thgit", *flags]) == 0
+    got = profiling.spans()
+    profiling.disable_spans()
+    assert main(["encode-tiled", "-i", plane_png, "-o", "off.thgit", *flags]) == 0
+    data = _read("on.thgit")
+    assert data == _read("off.thgit")
+    n = -(-100 // tile) * -(-90 // tile)
+    coders = dict(CODERS, **({} if native.available() else {"coder.ctx": 0}))
+    want = {"cli.encode_tiled": 1, "cli.load": 1, "tiles.split": 1, "tiles.encode": 1,
+            "codec.h2d": 1, "tiles.fetch": 1, "tiles.race": n, "tiles.frame": n, "tiles.write": n + 1,
+            "thgi.payload": n, "thgi.wait": n}
+    want.update({name: k * n for name, k in coders.items() if k})
+    assert collections.Counter(s.name for s in got) == want
+    root = next(s for s in got if s.name == "cli.encode_tiled")
+    assert {s.request for s in got} == {root.id}
+    names = {s.id: s.name for s in got}
+    for s in got:
+        parent = names.get(s.parent)
+        if s.name.startswith(("coder.", "thgi.")):
+            assert parent == "tiles.race" and s.thread == s.name.startswith("coder.")
+        elif s.name == "codec.h2d":
+            assert parent == "tiles.encode"
+        elif s is not root:
+            assert parent == "cli.encode_tiled" and not s.thread
+
+    def nbytes(name):
+        return sum(s.nbytes for s in got if s.name == name)
+
+    offsets = _block_offsets(data)
+    assert nbytes("tiles.fetch") == n * tile * tile  # the batch's grids, a byte a pixel
+    assert nbytes("tiles.write") == len(data)
+    assert nbytes("tiles.race") == nbytes("tiles.frame") == len(data) - offsets[0] - 12 * n
+    # Each coder's job carries its payload: the grid, or the subband
+    # layout's anchors and quads, which a tile of a multiple of 16 holds
+    # unpadded at depth 4.
+    assert nbytes("thgi.payload") == n * tile * tile
+    for name, k in coders.items():
+        assert nbytes(name) == k * n * tile * tile
+
+
+def test_race_wins_add_up_to_the_tiles(plane_png):
+    tc.RACE_WINS.clear()
+    flags = ["--tile", "16", "--format", "thgi", *CPU]
+    assert main(["encode-tiled", "-i", plane_png, "-o", "t.thgit", *flags]) == 0
+    data = _read("t.thgit")
+    heads = collections.Counter((data[off + 12 + 28], data[off + 12 + 29])
+                                for off in _block_offsets(data))
+    assert sum(tc.RACE_WINS.values()) == 7 * 6 == sum(heads.values())
+    assert dict(tc.RACE_WINS) == dict(heads)
+    tc.RACE_WINS.clear()
+    assert main(["encode-tiled", "-i", plane_png, "-o", "f.thgit", "--fast", *flags]) == 0
+    assert not tc.RACE_WINS  # one device coder: no race
+
+
 @pytest.mark.parametrize("recorded", (True, False), ids=("recorder-on", "recorder-off"))
 def test_program_ranges_enter_a_profile_only_inside_trace(plane_png, recorded):
     from torch.profiler import ProfilerActivity, profile
