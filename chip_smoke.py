@@ -124,34 +124,19 @@ imports nothing of JAX.  Phases, each of which fails the run by raising:
    are printed.  The bench runs its host-coder group (DEFLATE-9 included)
    on the whole batch: on an H100 the whole bench takes about 15 s, well
    short of doubling this script's time;
-15. time each kernel and its plain version with CUDA events, and read
-   the kernel's device time alone, and the device kernels one call
-   launches, with ``torch.profiler`` (lossless K1 must be one launch at
+15. count with ``torch.profiler`` the device kernels one call launches
+   (copies and memsets not counted): lossless K1 must be one launch at
    depths 4 and 8, lossy K1 one at depth 4, K2 and K5 one at depth 4 and
    for K5's preview at upto 2, and 1 + 8 - DECODE_FINE_LEVELS at depth 8;
    lossless K3 one at depths 4 and 8, lossy K3 one at depth 4 and
-   1 + 8 - FINE_LEVELS at depth 8, with or without recon; K4 one:
-   checked first of all, while the profiler's traces hold every record;
-   the device times of K2-K5 are traced then too, on the very planes,
-   grids and quads this phase times, which are made first from a seed of
-   their own); for X1's histogram, also
-   ``torch.bincount`` on the same grid; and X1's device time against its
-   rows and lanes, from one plane to 32.  Each kernel's bound is the
-   larger of its bytes over 3.35 TB/s and its operations over the card's
-   issue ceiling (132 SMs x 128 lanes x the SM clock's maximum), or over
-   the highest SASS instruction rate a K8 chain measured, where that is
-   higher; K6's and K7's count the function's work, 3 operations a
-   symbol and the stream and the body each moved once (for the 8-plane
-   ones, timed too, all 8 planes and the widths).  X1 also
-   has a chain bound: its rows T times the dependent
-   chain of its lanes loop, in SASS instructions a row (read with
-   ``cuobjdump -sass``), times 4 cycles, over the SM clock;
-16. run the probe's ``sweep`` (lossy K1's and K3's tile and fine depth,
-   K2's and K5's tile and fine depth with fine 0 for one launch a level,
-   K5's previews, the decodes' tile at more plane counts and sizes, X1's
-   lanes a block, K6's and K7's blocks a warp) in a process of its own,
-   whose traces hold every record, and check the launches of K1, K2, K3,
-   K5, K6, K7 and X1 that it reports.
+   1 + 8 - FINE_LEVELS at depth 8, with or without recon; K4 one; K1 and
+   K2 one at the color and tiled paths' shapes, X1 three; and each
+   kernel's count at 1x1080x1920 L4 medium, for its record.  Checked
+   first of all, while the profiler's traces hold every record.
+
+Nothing here times a kernel: ``python -m rustyhgi_tpu_torch.tools.chip_probe
+times`` times each against its plain version and its bound, and
+``chip_probe sweep`` times the kernels' tiles.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -167,7 +152,6 @@ import io
 import json
 import os
 import shutil
-import statistics
 import struct
 import subprocess
 import sys
@@ -200,8 +184,9 @@ from rustyhgi_tpu_torch.utils.container import (
     write_thgi,
 )
 from rustyhgi_tpu_torch.parallel import multihost
-from rustyhgi_tpu_torch.tools import chip_probe, decode_times, multihost_run
-from rustyhgi_tpu_torch.utils.benchsuite import SUITE, device_samples
+from rustyhgi_tpu_torch.tools import chip_probe, multihost_run
+from rustyhgi_tpu_torch.utils import profiling
+from rustyhgi_tpu_torch.utils.benchsuite import SUITE
 from rustyhgi_tpu_torch.utils.imageio import load_luma, save_gray
 from rustyhgi_tpu_torch.utils.profiling import stage_clock
 
@@ -209,26 +194,6 @@ DEVICE = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 SEED = 20261016
-REPEATS = 7  # timed runs per measurement, after one warm-up
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "X1")
-_CODEC_SRC = "rustyhgi_tpu_torch/csrc/hgi_codec.cu"
-_ENTROPY_SRC = "rustyhgi_tpu_torch/csrc/hgi_entropy.cu"
-_PROBE_SRC = "rustyhgi_tpu_torch/csrc/hgi_probe.cu"
-REPLACES = {  # C entry point, the TPU kernel it replaces, its source
-    "K1": ("hgi_encode", "rustyhgi_tpu/ops/pallas_codec.py:778", _CODEC_SRC),
-    "K2": ("hgi_decode", "rustyhgi_tpu/ops/pallas_codec.py:1037", _CODEC_SRC),
-    "K3": ("hgi_encode_subbands", "rustyhgi_tpu/ops/pallas_codec.py:913", _CODEC_SRC),
-    "K4": ("hgi_assemble_grid", "rustyhgi_tpu/ops/pallas_codec.py:1249", _CODEC_SRC),
-    "K5": ("hgi_decode_subbands", "rustyhgi_tpu/ops/pallas_codec.py:1321", _CODEC_SRC),
-    "K6": ("bitpack_pack_compact", "rustyhgi_tpu/ops/pallas_kernels.py:120", _ENTROPY_SRC),
-    "K7": ("bitpack_unpack_compact", "rustyhgi_tpu/ops/pallas_kernels.py:157", _ENTROPY_SRC),
-    # the same kernels without compaction, JAX's contract: timed beside
-    # them and kept in their records under "eight_plane"
-    "K6 8-plane": ("bitpack_pack", "rustyhgi_tpu/ops/pallas_kernels.py:120", _ENTROPY_SRC),
-    "K7 8-plane": ("bitpack_unpack", "rustyhgi_tpu/ops/pallas_kernels.py:157", _ENTROPY_SRC),
-    "K8": ("hgi_vpucal", "tools/chip_probe.py:641", _PROBE_SRC),
-    "X1": ("rans_tpu_encode", "rustyhgi_tpu/ops/tpurans.py:172", _ENTROPY_SRC),
-}
 LAYOUT_NAMES = {0: "rowmajor", 1: "subband"}
 CODEC_NAMES = {tag: name for name, tag in container._CODEC_NAMES.items()}
 LAUNCHES = {  # each kernel's launch counter
@@ -238,25 +203,8 @@ LAUNCHES = {  # each kernel's launch counter
     "K6": (bitpack, "pack_launches"), "K7": (bitpack, "unpack_launches"),
     "K8": (vpucal, "vpucal_launches"), "X1": (tpurans, "rans_launches"),
 }
-# The published device-memory rate of one H100 SXM at 700 W.  The kernels'
-# operations are held to the card's issue ceiling: each of an SM's four
-# schedulers issues one 32-lane warp instruction a clock, so 132 SMs x 128
-# lanes x the SM clock (about 33.4 T instructions/s at 1980 MHz; the data
-# sheet's 67 TFLOP/s of FP32 is the same ceiling with an FMA counted as two
-# operations).  No mix of integer or FP32 instructions issues faster: K8's
-# chains of IADD3, LOP3, ISETP or FADD come within 4% of it, and a chain of
-# shifts (SHF, on the 64-lane INT32 pipe alone) reads half of it.  Where a K8 row's
-# SASS rate is higher, the bound takes it, so that it stays a lower bound.
-PEAK_BYTES_PER_S = 3.35e12
-SMS, DISPATCH_LANES_PER_SM, INT32_LANES_PER_SM = 132, 128, 64
-K8_ROUNDS = 200  # K8's rounds in its timing row
-X1_ROWS_A_LOOP = 8  # rows a pass of X1's main lanes loop codes (two groups of 4, hgi_entropy.cu)
+K8_ROUNDS = 200  # K8's largest k in its checks
 BLOCK_BYTES = 8 * 128  # a bit-pack block's 8 planes
-# K6's and K7's operations a symbol, from the function, not from either
-# kernel: its fold, one operation, and each of its 8 bits put into its
-# own plane, one operation a bit on 32-bit words of 4 symbols, so two a
-# symbol.  The bytes set their bound at any count near this.
-BITPACK_OPS_PER_SYMBOL = 3
 
 
 def _reset_launches() -> None:
@@ -275,14 +223,6 @@ def _fail(msg: str) -> None:
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         _fail(msg)
-
-
-def _max_sm_mhz() -> float:
-    """The SM clock's maximum in MHz, as nvidia-smi reports it."""
-    return float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0])
 
 
 def _natural_plane(rng, shape) -> np.ndarray:
@@ -340,7 +280,7 @@ def compare_kernels(rng) -> dict:
             for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
                 for pred in ("crossed", "left_top"):
                     cases.append((shape, levels, _table(preset), pred, preset))
-    worst = dict.fromkeys(KERNELS, 0)
+    worst = dict.fromkeys(chip_probe.KERNELS, 0)
     previews = 0
     for shape, levels, table, pred, preset in cases:
         img = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(DEVICE)
@@ -417,21 +357,6 @@ def _rans_err(got, want) -> int:
     )
 
 
-def _expanded(packed, widths, nb: int, n: int) -> torch.Tensor:
-    """K6's output framed and re-expanded on the host, as a reader gets it."""
-    data = bitpack.finalize_packed(packed.cpu().numpy(), widths.cpu().numpy(), nb, n)
-    return torch.from_numpy(bitpack.expand_packed(data, n)[0]).to(DEVICE)
-
-
-def _placed(body: torch.Tensor, n: int) -> torch.Tensor:
-    """A copy of a codec-2 body placed as ``unpack_bytes`` places it: its
-    planes on a 16-byte boundary."""
-    pad = -(8 + (-(-n // bitpack.BLOCK) + 1) // 2) % 16
-    buf = torch.empty(pad + body.numel(), dtype=torch.uint8, device=body.device)
-    buf[pad:].copy_(body)
-    return buf[pad:]
-
-
 def compare_compacting(flat: torch.Tensor, name: str) -> tuple:
     """Phase 2: the compacting K6 and K7 against their plain versions, bit
     for bit: K6 on the stream and on a copy one byte in (the byte-wise
@@ -449,7 +374,7 @@ def compare_compacting(flat: torch.Tensor, name: str) -> tuple:
     err7 = 0
     plain = bitpack.unpack_stream_plain(want, n)
     _check(torch.equal(plain, flat), f"unpack_stream_plain(pack_stream_plain) != input on {name}")
-    for label, src in (("", body), (" placed", _placed(body, n)),
+    for label, src in (("", body), (" placed", chip_probe.placed(body, n)),
                        (" unaligned", _unaligned(body))):
         e = _err(bitpack.unpack_stream(src, n), plain)
         err7 = max(err7, e)
@@ -514,7 +439,7 @@ def compare_fast_kernels(rng) -> dict:
         err = max(_err(packed[:nb], want_p), _err(widths[:nb], want_w))
         worst["K6"] = max(worst["K6"], err)
         _check(err == 0, f"K6 differs from the plain version on {name}")
-        expanded = _expanded(packed, widths, nb, flat.numel())
+        expanded = chip_probe.expanded(packed, widths, nb, flat.numel())
         out = bitpack.unpack_blocks(expanded)
         err = _err(out, bitpack.unpack_plain(expanded))
         worst["K7"] = max(worst["K7"], err)
@@ -1493,7 +1418,7 @@ def backends_path(rng, card: str) -> None:
     the rest, which holds the coding (the copies and K1 and K2, or the
     C++ stand-in, timed apart).  The host backends launch no kernel."""
     t0 = time.perf_counter()
-    none = {k: 0 for k in KERNELS}
+    none = {k: 0 for k in chip_probe.KERNELS}
     dev = ["--device", DEVICE]
     with open(os.path.join(GOLDEN, "baseline", "manifest.json")) as f:
         manifest = json.load(f)
@@ -1593,10 +1518,10 @@ def _captured(fn):
     return rc, out.getvalue()
 
 
-def bench_tier(card: str) -> tuple:
+def bench_tier(card: str) -> dict:
     """Phase 14: the probe, the CLI's bench and the bench through their
     entry points, each with the launch counts set to 0 just before it and
-    read just after; returns the probe's rows and each path's launches."""
+    read just after; returns each path's launches."""
     paths = {}
     _reset_launches()
     rc, text = _captured(lambda: chip_probe.main(["vpucal"]))
@@ -1637,216 +1562,24 @@ def bench_tier(card: str) -> tuple:
         print(f"phase bench-tier {label}: launches {paths[label]}")
         for kernel in kernels:
             _check(paths[label][kernel] > 0, f"the bench tier's {label} never launched {kernel}")
-    return rates, paths
+    return paths
 
 
-def sweep(card: str) -> None:
-    """Last phase: ``python -m rustyhgi_tpu_torch.tools.chip_probe sweep``
-    in a process of its own, whose traces hold every record however much
-    this one traced; the sweep reports the wrapper calls of K1, K2, K3, K5,
-    K6, K7 and X1 it made."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "rustyhgi_tpu_torch.tools.chip_probe", "sweep"],
-                          cwd=ROOT, capture_output=True, text=True, timeout=600)
-    print(f"{proc.stdout.rstrip()}\nchip_probe sweep ({time.perf_counter() - t0:.1f} s) [{card}]")
-    _check(proc.returncode == 0, f"chip_probe sweep failed:\n{proc.stderr[-4000:]}")
-    result = json.loads(proc.stdout.strip().splitlines()[-1])
-    launches = result["launches"]
-    timed = [v for group in result["sweep"].values() for v in group.values()]
-    print(f"phase sweep: launches {launches}; {sum(1 for v in timed if v)} of {len(timed)} "
-          f"choices timed")
-    _check(any(timed), "chip_probe sweep timed no choice")
-    for kernel in ("K1", "K2", "K3", "K5", "K6", "K7", "X1"):
-        _check(launches[kernel] > 0, f"chip_probe sweep never launched {kernel}")
+def _launched(fn):
+    """The device kernels one call of ``fn`` launches (torch.profiler, copies
+    and memsets not counted); None when the traces dropped records."""
+    return profiling.kernel_launches(profiling.device_trace(fn))
 
 
-def _time(fn) -> list:
-    """ms of REPEATS CUDA-event-timed runs after a warm-up; L2 flushed
-    (``benchsuite.device_samples``)."""
-    return [t * 1e3 for t in device_samples(fn, REPEATS, DEVICE)]
-
-
-def _device_by_name(fn) -> dict:
-    """Device time of one call in ms by kernel or copy name, from
-    torch.profiler over REPEATS calls after a warm-up, a trace that holds
-    every record (``bench.device_trace``); empty when none did."""
-    return {k: v * 1e3 for k, v in bench.device_trace(fn, DEVICE).items()}
-
-
-def _device_ms(fn, only: str = ""):
-    """Device time of one call in ms: its CUDA kernels and copies (those
-    whose name holds ``only``); None when the trace holds no device time."""
-    ms = sum(v for k, v in _device_by_name(fn).items() if only in k)
-    return ms if ms > 0 else None
-
-
-def _device_trace(fn) -> tuple:
-    """One call of ``fn`` under torch.profiler, REPEATS calls after a
-    warm-up: (device ms of its kernels and copies, device kernels launched
-    a call); (None, None) when the traces dropped records
-    (``decode_times.device_trace``)."""
-    return decode_times.device_trace(fn, REPEATS)
-
-
-def timing_inputs() -> dict:
-    """Phase 15's inputs, made once from a seed of their own: for 1x and
-    8x1080x1920 and each preset, ``(plane, table, K1's grid, K3's anchors,
-    K3's quads)``."""
-    rng = np.random.default_rng([SEED, 9])
-    inputs = {}
-    for shape in [(1, 1080, 1920), (8, 1080, 1920)]:
-        img = torch.from_numpy(_natural_plane(rng, shape)).to(DEVICE)
-        for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
-            table = _table(preset)
-            anchors, subbands, _ = cuda_codec.encode_subbands(img, 4, table)
-            inputs[shape, preset] = (img, table, cuda_codec.encode_plane(img, 4, table)[0],
-                                     anchors, subbands)
-    return inputs
-
-
-# The kernels whose device times and launches are traced early, on phase
-# 8's own inputs (:func:`kernel_device_times`).
-EARLY = ("K2", "K3", "K4", "K5")
-
-
-def kernel_device_times(inputs: dict, card: str) -> dict:
-    """Phase 15, early, while the profiler's traces hold every record: the
-    device time and device launches a call of K2, K3 (and K3 with no recon
-    wanted, as the bench calls it), K4 and K5, on phase 15's own planes,
-    grids and quads; ``{(kernel, shape, preset): (ms, launches)}``."""
-    times = {}
-    for (shape, preset), (img, table, grid, anchors, subbands) in inputs.items():
-        hw = img.shape[-2:]
-        for kernel, fn in (
-                ("K2", lambda: cuda_codec.decode_plane(grid, 4)),
-                ("K3", lambda: cuda_codec.encode_subbands(img, 4, table)),
-                ("K3 no recon", lambda: cuda_codec.encode_subbands(img, 4, table, want_recon=False)),
-                ("K4", lambda: cuda_codec.assemble_grid(anchors, subbands, hw)),
-                ("K5", lambda: cuda_codec.decode_subbands(anchors, subbands, hw, 4))):
-            dk, launched = _device_trace(fn)
-            what = f"{kernel} {'x'.join(map(str, shape))} L4 {preset.name.lower()}"
-            _check(dk is not None, f"{what}: the trace dropped records, no device time")
-            times[kernel, shape, preset] = (dk, launched)
-            print(f"device {what}: {dk:.4f} ms, {launched:g} device launch(es) a call, "
-                  f"torch.profiler mean of {REPEATS} calls on phase 15's inputs [{card}]")
-    return times
-
-
-def _x1_chain(mhz: float) -> dict:
-    """X1's lanes loop in SASS (``cuobjdump -sass`` of the library): its
-    dependent chain a row, and what that gives at 4 cycles an instruction;
-    empty without cuobjdump."""
-    sass = chip_probe.library_sass()
-    if sass is None:
-        return {}
-    name = f"rans_encode_lanesILi{tpurans.LANE_BLOCK}ELb1E"
-    chain = chip_probe.sass_chain(sass, name, X1_ROWS_A_LOOP, "IMAD.HI.U32")
-    _check(chain is not None, f"no lanes loop found in the SASS of {name}")
-    _check(not any(op.startswith(("IDIV", "I2F", "MUFU")) for op in chain["chain_opcodes"]),
-           f"X1's lanes loop divides: {chain['chain_opcodes']}")
-    chain["ns_a_row"] = chain["chain_per_row"] * 4 / mhz * 1e3
-    return chain
-
-
-def _bound(io_bytes: int, ops: int, peak_ops: float) -> tuple:
-    """The least time the card could take: (ms, "bytes" or "operations")."""
-    t_bytes, t_ops = io_bytes / PEAK_BYTES_PER_S, ops / peak_ops
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
-
-def _shown(d, e) -> str:
-    return ("not measured (no device time in the trace)" if d is None
-            else f"{d:.4f} ms ({100 * (1 - d / e):.1f}% idle in the event window)")
-
-
-def timings(inputs: dict, card: str, peak_ops: float, early: dict) -> dict:
-    """Phase 15: kernel and plain version, same inputs, same call.  The
-    device times and launches of K2-K5 come from ``early``
-    (:func:`kernel_device_times`, on the same inputs)."""
-    rows = {}
-    for (shape, preset), (img, table, grid, anchors, subbands) in inputs.items():
-        hw = img.shape[-2:]
-        b, n = shape[0], img.numel()
-        lossy = n if table is not None else 0
-        canvas = anchors.numel() + sum(q.numel() for quads in subbands for q in quads)
-        flat = grid.reshape(-1)
-        packed, widths, nb = bitpack.pack_blocks(flat)
-        expanded = _expanded(packed, widths, nb, n)
-        body = _placed(bitpack.pack_stream(flat), n)  # as codec 2's read places it
-        sym = grid.reshape(b, -1)
-        counts = tpurans.encode_batch(sym)[1]
-        lanes, words = counts.shape[1], int(counts.sum())
-        cells = b * lanes * -(-sym.shape[1] // lanes)
-        # (kernel, kernel call, plain call, bytes each input read once and
-        # each output written once, integer operations: K1-K5 and X1
-        # estimated from the kernel's source per element, K6 and K7
-        # counted from the function, BITPACK_OPS_PER_SYMBOL)
-        for kernel, kern, plain, io_bytes, ops in (
-            ("K1", lambda: cuda_codec.encode_plane(img, 4, table),
-             lambda: pyramid.encode_plane(img, 4, table), 2 * n + lossy, 12 * n),
-            ("K2", lambda: cuda_codec.decode_plane(grid, 4),
-             lambda: pyramid.decode_plane(grid, 4), 2 * n, 8 * n),
-            ("K3", lambda: cuda_codec.encode_subbands(img, 4, table),
-             lambda: pyramid.encode_subbands(img, 4, table), n + canvas + lossy, 12 * canvas),
-            ("K4", lambda: cuda_codec.assemble_grid(anchors, subbands, hw),
-             lambda: pyramid.assemble_grid(anchors, subbands, hw), canvas + n, 10 * n),
-            ("K5", lambda: cuda_codec.decode_subbands(anchors, subbands, hw, 4),
-             lambda: pyramid.decode_subbands(anchors, subbands, hw, 4), canvas + n, 8 * canvas),
-            ("K6", lambda: bitpack.pack_compact(flat), lambda: bitpack.pack_stream_plain(flat),
-             n + body.numel(), BITPACK_OPS_PER_SYMBOL * n),
-            ("K7", lambda: bitpack.unpack_stream(body, n),
-             lambda: bitpack.unpack_stream_plain(body, n), body.numel() + n,
-             BITPACK_OPS_PER_SYMBOL * n),
-            ("K6 8-plane", lambda: bitpack.pack_blocks(flat), lambda: bitpack.pack_plain(flat),
-             n + packed.numel() + 4 * nb, BITPACK_OPS_PER_SYMBOL * n),
-            ("K7 8-plane", lambda: bitpack.unpack_blocks(expanded),
-             lambda: bitpack.unpack_plain(expanded), 2 * expanded.numel(),
-             BITPACK_OPS_PER_SYMBOL * n),
-            ("X1", lambda: tpurans.encode_batch(sym), lambda: tpurans.encode_plain(sym),
-             n + 4 * b * (256 + 2 * lanes) + 2 * words, 22 * cells),
-            ("K8", lambda: vpucal.vpucal_chain(img, "mix3", K8_ROUNDS),
-             lambda: vpucal.vpucal_plain(img, "mix3", K8_ROUNDS), 2 * n, 3 * K8_ROUNDS * n),
-        ):
-            # The kernel's trace first: the plain versions launch many
-            # kernels, after which the profiler's traces drop records.
-            if kernel in EARLY:
-                dk, launched = early[kernel, shape, preset]
-            else:
-                dk, launched = _device_trace(kern)
-            # Plain, kernel, kernel, plain: compare within one call.
-            p1, k1 = _time(plain), _time(kern)
-            k2, p2 = _time(kern), _time(plain)
-            key = (kernel, "x".join(map(str, shape)), preset.name.lower())
-            k, p = statistics.median(k1 + k2), statistics.median(p1 + p2)
-            bound_ms, bound_by = _bound(io_bytes, ops, peak_ops)
-            rows[key] = {"ms": k, "plain_ms": p, "bound_ms": bound_ms, "bound_by": bound_by}
-            what = f"mix3 k={K8_ROUNDS}" if kernel == "K8" else f"L4 {key[2]}"
-            print(f"time {kernel} {REPLACES[kernel][0]} {key[1]} {what}: kernel "
-                  f"median {k:.4f} ms [{min(k1 + k2):.4f}..{max(k1 + k2):.4f}], plain "
-                  f"median {p:.4f} ms [{min(p1 + p2):.4f}..{max(p1 + p2):.4f}], "
-                  f"{2 * REPEATS} runs each, L2 flushed; bound {bound_ms:.4f} ms by "
-                  f"{bound_by} ({io_bytes} B, {ops} ops) [{card}]")
-            # The event window above includes the wrapper's host time
-            # whenever the card finishes first; the profiler's device
-            # time does not.  The plain versions are not traced: X1's
-            # launches a kernel per symbol row, and after a trace of
-            # that size later traces drop records.
-            rows[key].update(device_ms=dk, device_launches=launched)
-            count = ("launches not measured" if launched is None
-                     else f"{launched:g} device launch(es) a call")
-            print(f"device {kernel} {key[1]} {what}: kernel {_shown(dk, k)}, "
-                  f"torch.profiler mean of {REPEATS} calls; {count} [{card}]")
-        # X1's histogram alone, against the one PyTorch call that
-        # computes a histogram (over all planes at once when b > 1).
-        hist = _device_ms(lambda: tpurans.encode_batch(sym), "rans_histogram")
-        lib_ms = statistics.median(_time(lambda: torch.bincount(flat, minlength=256)))
-        lib_dev = _device_ms(lambda: torch.bincount(flat, minlength=256))
-        rows[("X1", key[1], key[2])].update(histogram_device_ms=hist, bincount_ms=lib_ms)
-        print(f"histogram {key[1]} L4 {key[2]}: X1 rans_histogram device "
-              f"{'not measured' if hist is None else f'{hist:.4f} ms'}; torch.bincount "
-              f"event median {lib_ms:.4f} ms, device "
-              f"{'not measured' if lib_dev is None else f'{lib_dev:.4f} ms'} [{card}]")
-    return rows
+def kernel_launches() -> dict:
+    """Phase 15, first: the device kernels one call of each kernel launches
+    at 1x1080x1920 L4 medium, on the calls ``chip_probe times`` times
+    (``chip_probe.kernel_rows``, a seed of their own), for the kernels'
+    record; None where the traces dropped records."""
+    img = torch.from_numpy(_natural_plane(np.random.default_rng([SEED, 9]),
+                                          (1, 1080, 1920))).to(DEVICE)
+    return {row: _launched(kern) for row, kern, *_ in
+            chip_probe.kernel_rows(img, _table(QuantizationLevel.MEDIUM))}
 
 
 def decode_launches(rng, card: str) -> None:
@@ -1865,7 +1598,7 @@ def decode_launches(rng, card: str) -> None:
                      ("K5 preview 2", lambda: cuda_codec.decode_preview(
                          anchors, subbands[:2], img.shape, levels, 2), 2)]
             for name, fn, upto in calls:
-                n = _device_trace(fn)[1]
+                n = _launched(fn)
                 want = 1 + max(upto - fine, 0)
                 _check(n == want, f"{name} {preset.name.lower()} L{levels}: {n} device "
                                   f"launches, {want} expected")
@@ -1883,7 +1616,7 @@ def k1_launches(rng, card: str) -> None:
     shown = []
     for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
         for levels in (4, 8):
-            n = _device_trace(lambda: cuda_codec.encode_plane(img, levels, _table(preset)))[1]
+            n = _launched(lambda: cuda_codec.encode_plane(img, levels, _table(preset)))
             want = 1 if preset == QuantizationLevel.LOSSLESS else 1 + max(levels - fine, 0)
             _check(n == want, f"K1 {preset.name.lower()} L{levels}: {n} device launches, "
                               f"{want} expected")
@@ -1909,7 +1642,7 @@ def subband_launches(rng, card: str) -> None:
                     ("K3 no recon", lambda: cuda_codec.encode_subbands(img, levels, table,
                                                                        want_recon=False), k3),
                     ("K4", lambda: cuda_codec.assemble_grid(anchors, subbands, img.shape), 1)):
-                n = _device_trace(fn)[1]
+                n = _launched(fn)
                 _check(n == want, f"{name} {preset.name.lower()} L{levels}: {n} device "
                                   f"launches, {want} expected")
                 shown.append(f"{name} {preset.name.lower()} L{levels} {n:g}")
@@ -1919,11 +1652,10 @@ def subband_launches(rng, card: str) -> None:
 
 def new_path_shapes(rng, card: str) -> None:
     """Phase 15, the shapes the color and tiled paths give the kernels:
-    device ms (torch.profiler) and device launches a call of K1 and K2 at
-    [3, 1080, 1920] (color's three planes), K1, X1 and K2 at [32, 512,
-    512] (a chunk of ``encode-tiled --fast``) and K2 at [256, 512, 512]
-    (``decode-tiled`` of 8192x8192); K1 and K2 must be one launch at L4,
-    X1 three kernels."""
+    device launches a call (torch.profiler) of K1 and K2 at [3, 1080,
+    1920] (color's three planes), K1, X1 and K2 at [32, 512, 512] (a chunk
+    of ``encode-tiled --fast``) and K2 at [256, 512, 512] (``decode-tiled``
+    of 8192x8192); K1 and K2 must be one launch at L4, X1 three kernels."""
     shown = []
     for shape in [(3, 1080, 1920), (32, 512, 512), (256, 512, 512)]:
         img = torch.from_numpy(_natural_plane(rng, shape)).to(DEVICE)
@@ -1936,38 +1668,13 @@ def new_path_shapes(rng, card: str) -> None:
             if shape[0] == 32:
                 calls.append(("X1", lambda: tpurans.encode_batch(grid.reshape(32, -1)), 3))
             for name, fn, want in calls:
-                ms, n = _device_trace(fn)
+                n = _launched(fn)
                 _check(n in (None, want), f"{name} {preset.name.lower()} {list(shape)}: {n} "
                                           f"device launches, {want} expected")
                 shown.append(f"{name} {preset.name.lower()} {list(shape)} " + (
-                    "not measured" if ms is None else f"{ms:.4f} ms, {n:g}"))
-    print(f"color and tiled shapes, device ms and device launches a call (torch.profiler, "
-          f"mean of {REPEATS} calls): {'; '.join(shown)} [{card}]")
-
-
-def x1_scaling(rng, card: str, chain: dict) -> None:
-    """Phase 15, X1 alone: its device time against its rows T and its
-    threads B*L at medium, beside its chain bound.  A lane codes its T
-    rows in turn, so while the card has idle room the time follows T, not
-    the pixels."""
-    for shape in [(1, 1080, 1920), (1, 2614, 2368), (1, 4096, 4096), (8, 1080, 1920),
-                  (32, 1080, 1920)]:
-        img = torch.from_numpy(_natural_plane(rng, shape)).to(DEVICE)
-        grid = cuda_codec.encode_plane(img, 4, _table(QuantizationLevel.MEDIUM))[0]
-        sym = grid.reshape(shape[0], -1)
-        lanes = tpurans.lanes_for(sym.shape[1])
-        rows = -(-sym.shape[1] // lanes)
-        parts = _device_by_name(lambda: tpurans.encode_batch(sym))
-        dev = sum(parts.values())
-        shown = ("not measured" if not dev
-                 else f"{dev:.4f} ms, {sym.numel() / dev / 1e3:.1f} MPix/s")
-        by_kernel = ", ".join(
-            f"{name} {sum(v for k, v in parts.items() if name in k):.4f}"
-            for name in ("rans_histogram", "rans_normalize", "rans_encode_lanes", "Memset"))
-        bound = (f"{rows * chain['ns_a_row'] / 1e6:.4f} ms" if chain else "not measured")
-        print(f"x1-scaling {'x'.join(map(str, shape))} medium: L {lanes}, T {rows}, "
-              f"{shape[0] * lanes} threads: device {shown} ({by_kernel} ms); chain bound "
-              f"{bound} [{card}]")
+                    "not measured" if n is None else f"{n:g}"))
+    print(f"color and tiled shapes, device launches a call (torch.profiler): "
+          f"{'; '.join(shown)} [{card}]")
 
 
 def main() -> int:
@@ -2007,8 +1714,7 @@ def main() -> int:
     decode_launches(np.random.default_rng([SEED, 2]), card)
     subband_launches(np.random.default_rng([SEED, 3]), card)
     new_path_shapes(np.random.default_rng([SEED, 12]), card)
-    inputs = timing_inputs()
-    early = kernel_device_times(inputs, card)
+    device_launches = kernel_launches()
     rng = np.random.default_rng(SEED)
     worst = compare_kernels(rng)
     worst.update(compare_fast_kernels(rng))
@@ -2086,7 +1792,7 @@ def main() -> int:
             with recorder:
                 elsewhere = run() or {}  # the calls its worker processes made
             here = _read_launches()
-            got = {k: here[k] + elsewhere.get(k, 0) for k in KERNELS}
+            got = {k: here[k] + elsewhere.get(k, 0) for k in chip_probe.KERNELS}
             new_launches[phase] = got
             print(f"phase {phase}: launches {got} (in worker processes {elsewhere}) in "
                   f"{time.perf_counter() - t0:.1f} s")
@@ -2112,60 +1818,27 @@ def main() -> int:
     for kernel in ("K1", "K2", "K3", "K5"):
         _check(backends_launches[kernel] > 0, f"the backends phase never launched {kernel}")
 
-    rates, bench_paths = bench_tier(card)
+    bench_paths = bench_tier(card)
     launches["K8"] = bench_paths["vpucal"]["K8"]
-    mhz = _max_sm_mhz()
-    ceiling = SMS * DISPATCH_LANES_PER_SM * mhz * 1e6
-    sass = {name: r["sass_ops_per_s"] for name, r in rates.items() if r.get("sass_ops_per_s")}
-    peak_ops = max(ceiling, *sass.values())
-    shown = ", ".join(f"{name} {v / 1e12:.3f}" for name, v in sass.items()) or "not measured"
-    print(f"ops bound: issue ceiling {SMS} SMs x {DISPATCH_LANES_PER_SM} lanes x {mhz:.0f} MHz = "
-          f"{ceiling / 1e12:.3f} T instr/s (the {INT32_LANES_PER_SM}-lane INT32 pipe alone "
-          f"{SMS * INT32_LANES_PER_SM * mhz * 1e6 / 1e12:.3f} T); K8 mix3x16 measured "
-          f"{rates['mix3x16']['ops_per_s'] / 1e12:.3f} T op/s at 3 op/round; K8 SASS rates "
-          f"(T instr/s): {shown}; the bounds use {peak_ops / 1e12:.3f} T op/s [{card}]")
-
-    rows = timings(inputs, card, peak_ops, early)
-    chain = _x1_chain(mhz)
-    if chain:
-        print(f"X1 lanes loop ({chain['function']}): {chain['loop_instructions']} SASS "
-              f"instructions for {X1_ROWS_A_LOOP} rows; dependent chain {chain['chain']} "
-              f"({chain['chain_per_row']:g} a row: {' '.join(chain['chain_opcodes'])}); at 4 "
-              f"cycles each and {mhz:.0f} MHz, {chain['ns_a_row']:.2f} ns a row [{card}]")
-    else:
-        print("X1 lanes loop: cuobjdump not found, chain not measured")
-    x1_scaling(rng, card, chain)
-    sweep(card)
     _check("jax" not in sys.modules, "JAX was imported")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - started:.1f} s")
 
     kernels = []
-    for kernel in KERNELS:
-        entry, replaces, src = REPLACES[kernel]
-        row = rows[(kernel, "1x1080x1920", "medium")]
+    for kernel in chip_probe.KERNELS:
+        entry, replaces, src = chip_probe.REPLACES[kernel]
         record = {
             "name": f"{kernel} {entry}", "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kernel], "max_abs_err": worst[kernel],
-            "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "device_launches": device_launches[kernel],
         }
-        record["device_launches"] = row["device_launches"]
         if kernel in ("K6", "K7"):
-            eight = rows[(f"{kernel} 8-plane", "1x1080x1920", "medium")]
-            record["eight_plane"] = {"name": REPLACES[f"{kernel} 8-plane"][0],
-                                     **{k: eight[k] for k in ("ms", "device_ms", "plain_ms",
-                                                              "bound_ms", "device_launches")}}
+            record["eight_plane"] = {"name": chip_probe.REPLACES[f"{kernel} 8-plane"][0],
+                                     "device_launches": device_launches[f"{kernel} 8-plane"]}
         record["launches_color"] = color_launches[kernel]
         record["launches_tiled"] = tiled_launches[kernel]
         for phase, got in new_launches.items():
             record[f"launches_{phase}"] = got[kernel]
         record["launches_backends"] = backends_launches[kernel]
-        if kernel == "X1":  # the histogram stage against torch.bincount; the chain bound
-            record["histogram_device_ms"] = row["histogram_device_ms"]
-            record["bincount_ms"] = row["bincount_ms"]
-            t = -(-1080 * 1920 // tpurans.lanes_for(1080 * 1920))
-            record["chain_bound_ms"] = t * chain["ns_a_row"] / 1e6 if chain else None
         kernels.append(record)
     print(json.dumps({"kernels": kernels}))
     print(chip_probe.card())

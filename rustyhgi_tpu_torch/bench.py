@@ -62,9 +62,9 @@ import zlib
 import numpy as np
 import torch
 
-from .utils import benchsuite
-from .utils.benchsuite import host_samples, synthetic
-from .utils.profiling import StageTimer, device_averages, trace
+from .utils import profiling
+from .utils.benchsuite import synthetic
+from .utils.profiling import StageTimer, host_samples, require_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LENA_GOLDEN = os.path.join(ROOT, "tests", "golden", "baseline", "lena_l4_lossless.hgi")
@@ -76,10 +76,10 @@ SWEEP_LEVELS = range(1, 9)
 ENGINE_ROUNDS = 7
 SWEEP_ROUNDS = 5
 E2E_SAMPLES = 5
-REPEATS = 7  # timed calls per sample after a warm-up (chip_smoke.py's REPEATS)
+REPEATS = 7  # timed or traced calls per sample after a warm-up (chip_probe.py's REPEATS)
 ENTROPY_PLANES = BATCH  # planes of the medium grid the host coders code
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-RETRIES = 3  # takes of a sample below the bytes floor, or of a trace that dropped records
+RETRIES = 3  # takes of a sample below the bytes floor
 
 
 def log(*a):
@@ -105,7 +105,7 @@ def cuda_seconds_per_call(fn, device, floor_bytes: int = 0) -> float:
     """
     floor = floor_bytes / PEAK_BYTES_PER_S
     for attempt in range(RETRIES):
-        t = float(np.median(benchsuite.device_samples(fn, REPEATS, device)))
+        t = float(np.median(profiling.device_samples(fn, REPEATS, device)))
         if t >= floor:
             return t
         log(f"WARNING: {t * 1e6:.1f} us below the bytes floor {floor * 1e6:.1f} us; "
@@ -114,43 +114,15 @@ def cuda_seconds_per_call(fn, device, floor_bytes: int = 0) -> float:
                        f"{t * 1e6:.1f} us < {floor * 1e6:.1f} us")
 
 
-def device_trace(fn, device) -> dict:
-    """Device time of one call of ``fn`` by kernel, copy or memset name, in
-    seconds: the sum over ``REPEATS`` calls under :func:`..utils.profiling.trace`
-    (the device's records only), divided by ``REPEATS``; empty on the CPU
-    or when no trace held all its records.
-
-    On the H100 machine, once one trace in a process has held tens of
-    thousands of records (a plain version that launches a kernel per
-    symbol row), later traces drop some of theirs.  Every call launches
-    the same work, so a trace in which some name's count is no multiple
-    of ``REPEATS`` has dropped records: it is taken again, ``RETRIES``
-    times at most.  (A drop that leaves every count a multiple passes.)
-    """
-    if torch.device(device).type != "cuda":
-        return {}
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(RETRIES):
-        with trace(None, device) as prof:
-            for _ in range(REPEATS):
-                fn()
-        events = device_averages(prof)
-        counts = {e.key: e.count for e in events}
-        if counts and all(c % REPEATS == 0 for c in counts.values()):
-            return {e.key: e.self_device_time_total / REPEATS / 1e6 for e in events}
-        log(f"WARNING: the trace dropped device records (counts {counts}, {REPEATS} calls); "
-            f"retry {attempt + 1}/{RETRIES}")
-    return {}
-
-
 def device_seconds(fn, device):
-    """Device time of one call (:func:`device_trace`) and its split into
-    kernels, copies and memsets; ``(None, {})`` when not measured."""
+    """Device time of one call (:func:`..utils.profiling.device_trace`, on
+    ``cuda``) and its split into kernels, copies and memsets; ``(None,
+    {})`` when not measured."""
     parts = {"kernels": 0.0, "copies": 0.0, "memsets": 0.0}
-    for key, sec in device_trace(fn, device).items():
+    traced = profiling.device_trace(fn, REPEATS) if torch.device(device).type == "cuda" else {}
+    for key, rec in traced.items():
         part = "copies" if "Memcpy" in key else "memsets" if "Memset" in key else "kernels"
-        parts[part] += sec
+        parts[part] += rec.seconds
     total = sum(parts.values())
     return (total, parts) if total > 0 else (None, {})
 
@@ -456,7 +428,7 @@ def run(device="cuda", rounds: int = ENGINE_ROUNDS, details_path: str = DETAILS)
     from .models.codec import HGICodec
     from .tools.chip_probe import card
 
-    dev = benchsuite.require_device(device)
+    dev = require_device(device)
     if dev.type == "cuda":
         name = torch.cuda.get_device_name(0)
     else:

@@ -8,11 +8,14 @@ compiled, so a build takes seconds.  The log beside the library gives
 each command's wall time.  The library's name carries a hash
 of the sources and flags, so an edited source rebuilds and an unchanged
 one is reused.  Without ``nvcc``, or when the compiler fails, :func:`load`
-raises with the compiler's output.
+raises with the compiler's output.  Every launch wrapper enters
+:func:`_on` around its call and hands its return code to
+:func:`raise_on`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +26,9 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["BUILD_DIR", "SOURCES", "QTable", "build", "find_nvcc", "load"]
+import torch
+
+__all__ = ["BUILD_DIR", "SOURCES", "QTable", "build", "find_nvcc", "load", "raise_on"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in ("hgi_codec.cu", "hgi_entropy.cu", "hgi_probe.cu"))
@@ -159,3 +164,17 @@ def load() -> ctypes.CDLL:
         lib.hgi_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def raise_on(rc: int, entry: str) -> None:
+    """RuntimeError naming ``entry`` and the CUDA error unless ``rc`` is 0."""
+    if rc != 0:
+        msg = load().hgi_error_string(rc).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")
+
+
+def _on(device: torch.device):
+    """``torch.cuda.device(device)``, or nothing when it is current already."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

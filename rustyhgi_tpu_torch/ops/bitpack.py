@@ -44,7 +44,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import _build, cuda_codec  # cuda_codec._on at call time: the modules import each other
+from . import _build
+from ._build import _on, raise_on
 
 __all__ = [
     "BLOCK",
@@ -160,12 +161,6 @@ def unpack_stream_plain(body: torch.Tensor, n: int) -> torch.Tensor:
     return unpack_plain(expanded)[:n]
 
 
-def _raise_on(lib, rc: int, entry: str) -> None:
-    if rc != 0:
-        msg = lib.hgi_error_string(rc).decode()
-        raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")
-
-
 def _check_cuda(x: torch.Tensor, name: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name} must be a CPU or CUDA tensor, got {x.device}")
@@ -220,12 +215,12 @@ def pack_blocks(flat: torch.Tensor,
         return packed, widths, 0
     per = _per(per, nb)
     lib = _build.load()
-    with cuda_codec._on(flat.device):
+    with _on(flat.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bitpack_pack(flat.data_ptr(), packed.data_ptr(), widths.data_ptr(), n, nb, per,
                               stream)
     pack_launches += 1
-    _raise_on(lib, rc, "bitpack_pack")
+    raise_on(rc, "bitpack_pack")
     return packed, widths, nb
 
 
@@ -245,11 +240,11 @@ def unpack_blocks(expanded: torch.Tensor, per: Optional[int] = None) -> torch.Te
         return out
     per = _per(per, nb)
     lib = _build.load()
-    with cuda_codec._on(expanded.device):
+    with _on(expanded.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bitpack_unpack(expanded.data_ptr(), out.data_ptr(), nb, per, stream)
     unpack_launches += 1
-    _raise_on(lib, rc, "bitpack_unpack")
+    raise_on(rc, "bitpack_unpack")
     return out
 
 
@@ -274,11 +269,11 @@ def pack_compact(flat: torch.Tensor, per: Optional[int] = None) -> Tuple[torch.T
     per = _per(per, nb, compacting_k6=True)
     words = torch.empty(_COUNTERS + _ctas(nb, per), dtype=torch.int64, device=flat.device)
     lib = _build.load()
-    with cuda_codec._on(flat.device):
+    with _on(flat.device):
         rc = lib.bitpack_pack_compact(flat.data_ptr(), buf.data_ptr(), head, words.data_ptr(),
                                       n, per, torch.cuda.current_stream().cuda_stream)
     pack_launches += 1
-    _raise_on(lib, rc, "bitpack_pack_compact")
+    raise_on(rc, "bitpack_pack_compact")
     return buf, head, start
 
 
@@ -318,11 +313,11 @@ def unpack_stream(body: torch.Tensor, n: int, per: Optional[int] = None) -> torc
         return out
     per = _per(per, nb)
     lib = _build.load()
-    with cuda_codec._on(body.device):
+    with _on(body.device):
         rc = lib.bitpack_unpack_compact(body.data_ptr(), out.data_ptr(), body.shape[0], n, per,
                                         torch.cuda.current_stream().cuda_stream)
     unpack_launches += 1
-    _raise_on(lib, rc, "bitpack_unpack_compact")
+    raise_on(rc, "bitpack_unpack_compact")
     return out[:n]
 
 

@@ -59,7 +59,6 @@ does.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import weakref
@@ -70,7 +69,7 @@ import torch
 
 from ..dyadic import canvas_shapes, cdiv, effective_levels
 from . import _build, pyramid
-from ._build import QTable
+from ._build import QTable, _on, raise_on
 from .predictors import PREDICTORS, check_predictor
 
 __all__ = [
@@ -143,13 +142,6 @@ def _check_cuda(x: torch.Tensor, name: str) -> Tuple[int, int, int]:
     return b, h, w
 
 
-def _on(device: torch.device):
-    """``torch.cuda.device(device)``, or nothing when it is current already."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def _check_tiling(tile: Tuple[int, int], fine: int) -> Tuple[int, int]:
     """The tile's rows and columns, or ValueError unless the kernels take
     them: multiples of 16 and of ``2**fine``, ``fine`` in 0-5."""
@@ -170,12 +162,6 @@ def decode_tile(b: int, h: int, w: int, sms: int) -> Tuple[int, int]:
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _raise_on(lib, rc: int, entry: str) -> None:
-    if rc != 0:
-        msg = lib.hgi_error_string(rc).decode()
-        raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")
 
 
 def table_arg(table: torch.Tensor) -> QTable:
@@ -246,7 +232,7 @@ def encode_plane_tiled(
             th, tw, fine, stream,
         )
     encode_launches += 1
-    _raise_on(lib, rc, "hgi_encode")
+    raise_on(rc, "hgi_encode")
     return grid, recon
 
 
@@ -287,7 +273,7 @@ def decode_plane_tiled(
             effective_levels(levels, h, w), PREDICTORS[predictor], th, tw, fine, stream,
         )
     decode_launches += 1
-    _raise_on(lib, rc, "hgi_decode")
+    raise_on(rc, "hgi_decode")
     return out
 
 
@@ -451,7 +437,7 @@ def encode_subbands_tiled(
                 tab is not None, b, h, w, lv, PREDICTORS[predictor], th, tw, fine, stream,
             )
         encode_subbands_launches += 1
-        _raise_on(lib, rc, "hgi_encode_subbands")
+        raise_on(rc, "hgi_encode_subbands")
     return anchors, subbands, (recon if want_recon else None)
 
 
@@ -477,7 +463,7 @@ def assemble_grid(anchors: torch.Tensor, subbands, shape: Tuple[int, int]) -> to
             anchors.data_ptr(), _ptrs(flat), grid.data_ptr(), b, h, w, lv, stream,
         )
     assemble_launches += 1
-    _raise_on(lib, rc, "hgi_assemble_grid")
+    raise_on(rc, "hgi_assemble_grid")
     return grid
 
 
@@ -529,7 +515,7 @@ def decode_preview_tiled(
             PREDICTORS[predictor], th, tw, fine, stream,
         )
     decode_subbands_launches += 1
-    _raise_on(lib, rc, "hgi_decode_subbands")
+    raise_on(rc, "hgi_decode_subbands")
     return out
 
 

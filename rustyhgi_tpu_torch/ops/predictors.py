@@ -16,9 +16,8 @@ sum reaches 1020, which uint8 arithmetic would wrap.
 
 from __future__ import annotations
 
-from ..utils.container import Interpolation
-
 __all__ = [
+    "Interpolation",
     "PREDICTORS",
     "check_predictor",
     "tree",
@@ -27,6 +26,14 @@ __all__ = [
     "predictor_tag",
     "predictor_name_for_tag",
 ]
+
+
+class Interpolation:
+    """Interpolator tags, serde enum order (interpolator.rs:4-9)."""
+
+    CROSSED = 0
+    LINE = 1  # metadata-only in the reference (no implementation)
+    PREVIOUS = 2
 
 
 def _avg(a, b):

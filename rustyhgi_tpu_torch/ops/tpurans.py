@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._build import _on, raise_on
 
 __all__ = [
     "MAX_SYMBOLS",
@@ -239,7 +240,7 @@ def encode_batch(sym: torch.Tensor, lane_block: int = LANE_BLOCK):
     scratch = new(b * rows * lanes, dtype=torch.int16)  # each lane's words
     status = new(blocks + 1, dtype=torch.int64)  # look-back words, ticket
     lib = _build.load()
-    with torch.cuda.device(sym.device):
+    with _on(sym.device):
         cu_stream = torch.cuda.current_stream().cuda_stream
         rc = lib.rans_tpu_encode(
             sym.data_ptr(), freq.data_ptr(), counts.data_ptr(), states.data_ptr(),
@@ -247,9 +248,7 @@ def encode_batch(sym: torch.Tensor, lane_block: int = LANE_BLOCK):
             b, n, lanes, rows, lane_block, cu_stream,
         )
     rans_launches += 1
-    if rc != 0:
-        msg = lib.hgi_error_string(rc).decode()
-        raise RuntimeError(f"rans_tpu_encode failed: CUDA error {rc} ({msg})")
+    raise_on(rc, "rans_tpu_encode")
     return freq, counts, states, stream
 
 

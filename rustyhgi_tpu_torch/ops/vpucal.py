@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._build import _on, raise_on
 
 __all__ = ["KINDS", "vpucal_chain", "vpucal_plain", "vpucal_launches"]
 
@@ -90,12 +91,10 @@ def vpucal_chain(image: torch.Tensor, kind: str, k: int) -> torch.Tensor:
     if image.numel() == 0:
         return out
     lib = _build.load()
-    with torch.cuda.device(image.device):
+    with _on(image.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hgi_vpucal(image.data_ptr(), out.data_ptr(), b, h, w,
                             KINDS.index(kind), int(k), stream)
     vpucal_launches += 1
-    if rc != 0:
-        msg = lib.hgi_error_string(rc).decode()
-        raise RuntimeError(f"hgi_vpucal failed: CUDA error {rc} ({msg})")
+    raise_on(rc, "hgi_vpucal")
     return out

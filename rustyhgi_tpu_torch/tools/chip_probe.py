@@ -8,11 +8,14 @@ depth, the same for the decodes K2 and K5 (fine 0: a launch a level; K5's
 previews; the tile at more plane counts and sizes), and X1's lanes a
 block, where the JAX probe swept its Pallas kernel's row tiles; and
 ``validate`` (:func:`validate`), which holds the codec's kernels on the
-card against the oracle at the JAX probe's five cases::
+card against the oracle at the JAX probe's five cases.  A fourth,
+``times`` (``cmd_times``), times each kernel against its plain version
+and its bound::
 
     python -m rustyhgi_tpu_torch.tools.chip_probe vpucal [names]
     python -m rustyhgi_tpu_torch.tools.chip_probe sweep
     python -m rustyhgi_tpu_torch.tools.chip_probe validate
+    python -m rustyhgi_tpu_torch.tools.chip_probe times
 
 ``names`` is a comma-separated subset of the rows:
 
@@ -41,8 +44,8 @@ per pixel and round beside the rate computed from it.  Without
 ``cuobjdump`` the count is "not measured".
 
 Each line ends with the card's name and power limit (``nvidia-smi``); the
-last line is one JSON object ``{"vpucal": {row: {...}}}``.  The probe
-needs a CUDA card and raises without one.
+last line is one JSON object ``{"vpucal": {row: {...}}}``.  Every
+subcommand needs a CUDA card and raises without one.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import collections
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -62,15 +66,16 @@ import torch
 
 from ..ops import _build, vpucal
 from ..ops.quantizers import QuantizationLevel, quantize_fn
-from ..utils.benchsuite import device_samples
+from ..utils import profiling
 
-__all__ = ["VALIDATE_CASES", "cmd_sweep", "cmd_vpucal", "main", "sass_chain", "sass_loops",
+__all__ = ["KERNELS", "REPLACES", "VALIDATE_CASES", "cmd_sweep", "cmd_times", "cmd_vpucal",
+           "device_ms", "expanded", "kernel_rows", "main", "placed", "sass_chain", "sass_loops",
            "validate"]
 
 SEED = 20261016
 SHAPE = (8, 1080, 1920)
 K_LO, K_HI = 200, 2000
-REPEATS = 7  # timed calls per k after a warm-up, as chip_smoke.py's REPEATS
+REPEATS = 7  # timed or traced calls after a warm-up
 UNROLL = 4  # rounds in the main loop body of csrc/hgi_probe.cu (kUnroll)
 ROWS = ("mix3x16", "add", "shift", "csel", "f32add", "torch")
 _ROW_KIND = {"mix3x16": "mix3", "add": "add", "shift": "shift", "csel": "csel",
@@ -311,11 +316,6 @@ def ptxas_summary(log: str, names) -> Dict[str, dict]:
 # -- vpucal --------------------------------------------------------------------
 
 
-def _event_ms(fn) -> float:
-    """Median ms of REPEATS CUDA-event-timed calls after a warm-up."""
-    return float(np.median(device_samples(fn, REPEATS, "cuda"))) * 1e3
-
-
 def cmd_vpucal(names=None) -> Dict[str, dict]:
     """The op-rate rows of ``names`` (all of :data:`ROWS` by default),
     printed one a line; returns ``{row: {...}}``."""
@@ -338,7 +338,9 @@ def cmd_vpucal(names=None) -> Dict[str, dict]:
     for name in names:
         kind = _ROW_KIND[name]
         fn = vpucal.vpucal_plain if name == "torch" else vpucal.vpucal_chain
-        times = {k: _event_ms(lambda k=k: fn(x, kind, k)) for k in (K_LO, K_HI)}
+        times = {k: statistics.median(profiling.device_samples(lambda k=k: fn(x, kind, k),
+                                                               REPEATS, "cuda")) * 1e3
+                 for k in (K_LO, K_HI)}
         dt = (times[K_HI] - times[K_LO]) / 1e3
         rate = 3 * (K_HI - K_LO) * pix / dt
         row = {"kind": kind, "ms_k_lo": times[K_LO], "ms_k_hi": times[K_HI],
@@ -392,7 +394,44 @@ def _plane(rng, shape) -> np.ndarray:
     return np.clip(base + rng.normal(0.0, 6.0, (*lead, h, w)), 0, 255).astype(np.uint8)
 
 
-def _decode_rows(rows, img, levels, table, device_ms, smi, fines, tiles, uptos=()) -> None:
+def _table(preset):
+    q = quantize_fn(preset)
+    return None if q.identity else q.table
+
+
+def _traced_ms(records, only: str = "") -> Optional[float]:
+    """Device ms of the records of ``profiling.device_trace`` whose name
+    holds ``only``; None when none has time."""
+    return sum(r.seconds for k, r in records.items() if only in k) * 1e3 or None
+
+
+def device_ms(fn) -> Optional[float]:
+    """Device ms of one call of ``fn``, its kernels, copies and memsets;
+    None when the traces dropped records."""
+    return _traced_ms(profiling.device_trace(fn, REPEATS))
+
+
+def expanded(packed, widths, nb: int, n: int) -> torch.Tensor:
+    """K6's 8-plane output framed and re-expanded on the host, as a reader
+    gets it, on the card."""
+    from ..ops import bitpack
+
+    data = bitpack.finalize_packed(packed.cpu().numpy(), widths.cpu().numpy(), nb, n)
+    return torch.from_numpy(bitpack.expand_packed(data, n)[0]).to("cuda")
+
+
+def placed(body: torch.Tensor, n: int) -> torch.Tensor:
+    """A copy of a codec-2 body placed as ``unpack_bytes`` places it: its
+    planes on a 16-byte boundary."""
+    from ..ops import bitpack
+
+    pad = -(8 + (-(-n // bitpack.BLOCK) + 1) // 2) % 16
+    buf = torch.empty(pad + body.numel(), dtype=torch.uint8, device=body.device)
+    buf[pad:].copy_(body)
+    return buf[pad:]
+
+
+def _decode_rows(rows, img, levels, table, smi, fines, tiles, uptos=()) -> None:
     """K2's and K5's rows of the sweep on ``img`` at ``levels``: every
     fine depth of ``fines`` with every tile of ``tiles`` it divides (fine
     0, one launch a level, once), and K5's previews at each ``upto`` of
@@ -434,7 +473,7 @@ def _decode_rows(rows, img, levels, table, device_ms, smi, fines, tiles, uptos=(
                       f"[{smi}]", flush=True)
 
 
-def _bitpack_rows(rows, img, table, device_ms, smi) -> None:
+def _bitpack_rows(rows, img, table, smi) -> None:
     """K6 and K7 at each of ``bitpack.PER_WARP`` on ``img``'s residual grid
     as one stream, each output checked against the plain version's."""
     from ..ops import bitpack, cuda_codec
@@ -442,12 +481,9 @@ def _bitpack_rows(rows, img, table, device_ms, smi) -> None:
     flat = cuda_codec.encode_plane(img, 4, table)[0].reshape(-1)
     n = flat.numel()
     body = bitpack.pack_stream_plain(flat)
-    pad = -(8 + (-(-n // bitpack.BLOCK) + 1) // 2) % 16  # placed as unpack_bytes places it
-    placed = torch.empty(pad + body.numel(), dtype=torch.uint8, device="cuda")
-    placed[pad:].copy_(body)
-    placed = placed[pad:]
-    packed, widths, _ = bitpack.pack_plain(flat)
-    expanded = torch.from_numpy(bitpack.expand_packed(body.cpu().numpy().tobytes(), n)[0]).cuda()
+    body_placed = placed(body, n)
+    packed, widths, nb = bitpack.pack_plain(flat)
+    full = expanded(packed, widths, nb, n)
     shape = "x".join(map(str, img.shape))
     for per in bitpack.PER_WARP:
         buf, head, start = bitpack.pack_compact(flat, per)
@@ -456,15 +492,15 @@ def _bitpack_rows(rows, img, table, device_ms, smi) -> None:
         if not (torch.equal(buf[head : start + 128 * total], body)
                 and torch.equal(got[0], packed) and torch.equal(got[1], widths)):
             raise RuntimeError(f"K6 at {per} blocks a warp differs at {shape}")
-        if not torch.equal(bitpack.unpack_stream(placed, n, per), flat):
+        if not torch.equal(bitpack.unpack_stream(body_placed, n, per), flat):
             raise RuntimeError(f"K7 at {per} blocks a warp differs at {shape}")
-        if not torch.equal(bitpack.unpack_blocks(expanded, per)[:n], flat):
+        if not torch.equal(bitpack.unpack_blocks(full, per)[:n], flat):
             raise RuntimeError(f"K7 8-plane at {per} blocks a warp differs at {shape}")
         for name, fn in (
                 ("K6 compacting", lambda: bitpack.pack_compact(flat, per)),
                 ("K6 8-plane", lambda: bitpack.pack_blocks(flat, per)),
-                ("K7 compacted", lambda: bitpack.unpack_stream(placed, n, per)),
-                ("K7 8-plane", lambda: bitpack.unpack_blocks(expanded, per))):
+                ("K7 compacted", lambda: bitpack.unpack_stream(body_placed, n, per)),
+                ("K7 8-plane", lambda: bitpack.unpack_blocks(full, per))):
             key = f"{shape} {name} {per} a warp"
             rows[key] = ms = device_ms(fn)
             print(f"sweep {key}: device {ms if ms is None else f'{ms:.4f}'} ms [{smi}]",
@@ -481,23 +517,18 @@ def cmd_sweep() -> Dict[str, dict]:
     """Lossy K1's and K3's tile and fine depth, K2's and K5's (with K5's previews
     and more plane counts and sizes for the decodes' tile), X1's lanes
     a block, and K6's and K7's blocks a warp (both contracts), by device time
-    (``torch.profiler``, the mean of ``bench.REPEATS`` calls), on smooth
+    (``torch.profiler``, the mean of ``REPEATS`` calls), on smooth
     planes at medium; every choice's output is checked equal to the
     default's or the plain version's.  Prints a row a line, then one JSON
     object ``{"sweep": {...}, "launches": {...}}``, the latter the wrapper
     calls of K1, K2, K3, K5, K6, K7 and X1 the sweep made."""
     if not torch.cuda.is_available():
         raise RuntimeError("sweep needs a CUDA card: torch.cuda.is_available() is false")
-    from .. import bench
     from ..ops import bitpack, cuda_codec, pyramid, tpurans
-    from ..ops.quantizers import QuantizationLevel, quantize_fn
 
     smi = card()
     rng = np.random.default_rng(SEED)
     table = quantize_fn(QuantizationLevel.MEDIUM).table
-
-    def device_ms(fn):
-        return sum(bench.device_trace(fn, "cuda").values()) * 1e3 or None
 
     rows = {"k1": {}, "k3": {}, "k2": {}, "k5": {}, "x1": {}, "bitpack": {}}
     counters = {"K1": (cuda_codec, "encode_launches"), "K2": (cuda_codec, "decode_launches"),
@@ -514,13 +545,12 @@ def cmd_sweep() -> Dict[str, dict]:
         for levels in SWEEP_LEVELS:
             fine = cuda_codec.DECODE_FINE_LEVELS
             if levels == SWEEP_LEVELS[0]:  # every decode tile and the previews at one depth
-                _decode_rows(rows, img, levels, table, device_ms, smi,
+                _decode_rows(rows, img, levels, table, smi,
                              [f for f in SWEEP_DECODE_FINE if f != fine], SWEEP_TILES)
-                _decode_rows(rows, img, levels, table, device_ms, smi, (fine,),
+                _decode_rows(rows, img, levels, table, smi, (fine,),
                              SWEEP_DECODE_TILES, SWEEP_PREVIEWS)
             else:
-                _decode_rows(rows, img, levels, table, device_ms, smi, SWEEP_DECODE_FINE,
-                             SWEEP_TILES)
+                _decode_rows(rows, img, levels, table, smi, SWEEP_DECODE_FINE, SWEEP_TILES)
             want = cuda_codec.encode_plane(img, levels, table)
             want_sub = pyramid.encode_subbands(img, levels, table)
             for fine in SWEEP_FINE:
@@ -560,16 +590,301 @@ def cmd_sweep() -> Dict[str, dict]:
             print(f"sweep X1 {key}: device {ms if ms is None else f'{ms:.4f}'} ms [{smi}]",
                   flush=True)
     for shape in SWEEP_BITPACK_SHAPES:
-        _bitpack_rows(rows["bitpack"], torch.from_numpy(_plane(rng, shape)).to("cuda"), table,
-                      device_ms, smi)
+        _bitpack_rows(rows["bitpack"], torch.from_numpy(_plane(rng, shape)).to("cuda"), table, smi)
     drng = np.random.default_rng([SEED, 1])
     for shape in SWEEP_DECODE_SHAPES:
         img = torch.from_numpy(_plane(drng, shape)).to("cuda")
-        _decode_rows(rows, img, SWEEP_LEVELS[0], table, device_ms, smi,
+        _decode_rows(rows, img, SWEEP_LEVELS[0], table, smi,
                      (cuda_codec.DECODE_FINE_LEVELS,), SWEEP_DECODE_TILES[-2:])
     launches = {k: getattr(m, a) - before[k] for k, (m, a) in counters.items()}
     print(json.dumps({"sweep": rows, "launches": launches}))
     return rows
+
+
+# -- times ---------------------------------------------------------------------
+
+TIMES_SHAPES = ((1, 1080, 1920), (8, 1080, 1920))
+X1_SCALING_SHAPES = ((1, 1080, 1920), (1, 2614, 2368), (1, 4096, 4096), (8, 1080, 1920),
+                     (32, 1080, 1920))
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "X1")
+_CODEC_SRC = "rustyhgi_tpu_torch/csrc/hgi_codec.cu"
+_ENTROPY_SRC = "rustyhgi_tpu_torch/csrc/hgi_entropy.cu"
+_PROBE_SRC = "rustyhgi_tpu_torch/csrc/hgi_probe.cu"
+REPLACES = {  # C entry point, the TPU kernel it replaces, its source
+    "K1": ("hgi_encode", "rustyhgi_tpu/ops/pallas_codec.py:778", _CODEC_SRC),
+    "K2": ("hgi_decode", "rustyhgi_tpu/ops/pallas_codec.py:1037", _CODEC_SRC),
+    "K3": ("hgi_encode_subbands", "rustyhgi_tpu/ops/pallas_codec.py:913", _CODEC_SRC),
+    "K4": ("hgi_assemble_grid", "rustyhgi_tpu/ops/pallas_codec.py:1249", _CODEC_SRC),
+    "K5": ("hgi_decode_subbands", "rustyhgi_tpu/ops/pallas_codec.py:1321", _CODEC_SRC),
+    "K6": ("bitpack_pack_compact", "rustyhgi_tpu/ops/pallas_kernels.py:120", _ENTROPY_SRC),
+    "K7": ("bitpack_unpack_compact", "rustyhgi_tpu/ops/pallas_kernels.py:157", _ENTROPY_SRC),
+    # the same kernels without compaction, JAX's contract: timed beside
+    # them and kept in their records under "eight_plane"
+    "K6 8-plane": ("bitpack_pack", "rustyhgi_tpu/ops/pallas_kernels.py:120", _ENTROPY_SRC),
+    "K7 8-plane": ("bitpack_unpack", "rustyhgi_tpu/ops/pallas_kernels.py:157", _ENTROPY_SRC),
+    "K8": ("hgi_vpucal", "tools/chip_probe.py:641", _PROBE_SRC),
+    "X1": ("rans_tpu_encode", "rustyhgi_tpu/ops/tpurans.py:172", _ENTROPY_SRC),
+}
+# The published device-memory rate of one H100 SXM at 700 W.  The kernels'
+# operations are held to the card's issue ceiling: each of an SM's four
+# schedulers issues one 32-lane warp instruction a clock, so 132 SMs x 128
+# lanes x the SM clock (about 33.4 T instructions/s at 1980 MHz; the data
+# sheet's 67 TFLOP/s of FP32 is the same ceiling with an FMA counted as two
+# operations).  No mix of integer or FP32 instructions issues faster: K8's
+# chains of IADD3, LOP3, ISETP or FADD come within 4% of it, and a chain of
+# shifts (SHF, on the 64-lane INT32 pipe alone) reads half of it.  Where a K8 row's
+# SASS rate is higher, the bound takes it, so that it stays a lower bound.
+PEAK_BYTES_PER_S = 3.35e12
+SMS, DISPATCH_LANES_PER_SM, INT32_LANES_PER_SM = 132, 128, 64
+K8_ROUNDS = K_LO  # K8's rounds in its row
+X1_ROWS_A_LOOP = 8  # rows a pass of X1's main lanes loop codes (two groups of 4, hgi_entropy.cu)
+# K6's and K7's operations a symbol, from the function, not from either
+# kernel: its fold, one operation, and each of its 8 bits put into its
+# own plane, one operation a bit on 32-bit words of 4 symbols, so two a
+# symbol.  The bytes set their bound at any count near this.
+BITPACK_OPS_PER_SYMBOL = 3
+
+
+def max_sm_mhz() -> float:
+    """The SM clock's maximum in MHz, as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0])
+
+
+def kernel_rows(img: torch.Tensor, table) -> list:
+    """``[(row, kernel call, plain call, bytes, operations)]`` on ``img`` at
+    L4 under ``table``: the bytes each input read once and each output
+    written once; the integer operations of K1-K5 and X1 estimated from
+    the kernel's source per element, those of K6 and K7 counted from the
+    function (BITPACK_OPS_PER_SYMBOL)."""
+    from ..ops import bitpack, cuda_codec, pyramid, tpurans, vpucal
+
+    hw = img.shape[-2:]
+    b, n = img.shape[0], img.numel()
+    lossy = n if table is not None else 0
+    anchors, subbands, _ = cuda_codec.encode_subbands(img, 4, table)
+    grid = cuda_codec.encode_plane(img, 4, table)[0]
+    canvas = anchors.numel() + sum(q.numel() for quads in subbands for q in quads)
+    flat = grid.reshape(-1)
+    packed, widths, nb = bitpack.pack_blocks(flat)
+    full = expanded(packed, widths, nb, n)
+    body = placed(bitpack.pack_stream(flat), n)  # as codec 2's read places it
+    sym = grid.reshape(b, -1)
+    counts = tpurans.encode_batch(sym)[1]
+    lanes, words = counts.shape[1], int(counts.sum())
+    cells = b * lanes * -(-sym.shape[1] // lanes)
+    return [
+        ("K1", lambda: cuda_codec.encode_plane(img, 4, table),
+         lambda: pyramid.encode_plane(img, 4, table), 2 * n + lossy, 12 * n),
+        ("K2", lambda: cuda_codec.decode_plane(grid, 4),
+         lambda: pyramid.decode_plane(grid, 4), 2 * n, 8 * n),
+        ("K3", lambda: cuda_codec.encode_subbands(img, 4, table),
+         lambda: pyramid.encode_subbands(img, 4, table), n + canvas + lossy, 12 * canvas),
+        ("K4", lambda: cuda_codec.assemble_grid(anchors, subbands, hw),
+         lambda: pyramid.assemble_grid(anchors, subbands, hw), canvas + n, 10 * n),
+        ("K5", lambda: cuda_codec.decode_subbands(anchors, subbands, hw, 4),
+         lambda: pyramid.decode_subbands(anchors, subbands, hw, 4), canvas + n, 8 * canvas),
+        ("K6", lambda: bitpack.pack_compact(flat), lambda: bitpack.pack_stream_plain(flat),
+         n + body.numel(), BITPACK_OPS_PER_SYMBOL * n),
+        ("K7", lambda: bitpack.unpack_stream(body, n),
+         lambda: bitpack.unpack_stream_plain(body, n), body.numel() + n,
+         BITPACK_OPS_PER_SYMBOL * n),
+        ("K6 8-plane", lambda: bitpack.pack_blocks(flat), lambda: bitpack.pack_plain(flat),
+         n + packed.numel() + 4 * nb, BITPACK_OPS_PER_SYMBOL * n),
+        ("K7 8-plane", lambda: bitpack.unpack_blocks(full),
+         lambda: bitpack.unpack_plain(full), 2 * full.numel(), BITPACK_OPS_PER_SYMBOL * n),
+        ("X1", lambda: tpurans.encode_batch(sym), lambda: tpurans.encode_plain(sym),
+         n + 4 * b * (256 + 2 * lanes) + 2 * words, 22 * cells),
+        ("K8", lambda: vpucal.vpucal_chain(img, "mix3", K8_ROUNDS),
+         lambda: vpucal.vpucal_plain(img, "mix3", K8_ROUNDS), 2 * n, 3 * K8_ROUNDS * n),
+        # without a plain version or a bound: the bench's call of K3, and
+        # the one PyTorch call that computes X1's histogram stage
+        ("K3 no recon", lambda: cuda_codec.encode_subbands(img, 4, table, want_recon=False),
+         None, 0, 0),
+        ("torch.bincount", lambda: torch.bincount(flat, minlength=256), None, 0, 0),
+    ]
+
+
+def x1_chain(mhz: float) -> dict:
+    """X1's lanes loop in SASS (``cuobjdump -sass`` of the library): its
+    dependent chain a row, and what that gives at 4 cycles an instruction;
+    empty without cuobjdump.  Raises unless the loop is found and divides
+    nowhere."""
+    from ..ops import tpurans
+
+    sass = library_sass()
+    if sass is None:
+        return {}
+    name = f"rans_encode_lanesILi{tpurans.LANE_BLOCK}ELb1E"
+    chain = sass_chain(sass, name, X1_ROWS_A_LOOP, "IMAD.HI.U32")
+    if chain is None:
+        raise RuntimeError(f"no lanes loop found in the SASS of {name}")
+    if any(op.startswith(("IDIV", "I2F", "MUFU")) for op in chain["chain_opcodes"]):
+        raise RuntimeError(f"X1's lanes loop divides: {chain['chain_opcodes']}")
+    chain["ns_a_row"] = chain["chain_per_row"] * 4 / mhz * 1e3
+    return chain
+
+
+def _x1_scaling(rng, smi: str, chain: dict) -> None:
+    """X1 alone: its device time against its rows T and its threads B*L at
+    medium, beside its chain bound.  A lane codes its T rows in turn, so
+    while the card has idle room the time follows T, not the pixels."""
+    from ..ops import cuda_codec, tpurans
+
+    for shape in X1_SCALING_SHAPES:
+        img = torch.from_numpy(_plane(rng, shape)).to("cuda")
+        grid = cuda_codec.encode_plane(img, 4, _table(QuantizationLevel.MEDIUM))[0]
+        sym = grid.reshape(shape[0], -1)
+        lanes = tpurans.lanes_for(sym.shape[1])
+        rows = -(-sym.shape[1] // lanes)
+        parts = profiling.device_trace(lambda: tpurans.encode_batch(sym), REPEATS)
+        dev = _traced_ms(parts)
+        shown = ("not measured" if dev is None
+                 else f"{dev:.4f} ms, {sym.numel() / dev / 1e3:.1f} MPix/s")
+        by_kernel = ", ".join(f"{name} {_traced_ms(parts, name) or 0:.4f}" for name in (
+            "rans_histogram", "rans_normalize", "rans_encode_lanes", "Memset"))
+        bound = f"{rows * chain['ns_a_row'] / 1e6:.4f} ms" if chain else "not measured"
+        print(f"x1-scaling {'x'.join(map(str, shape))} medium: L {lanes}, T {rows}, "
+              f"{shape[0] * lanes} threads: device {shown} ({by_kernel} ms); chain bound "
+              f"{bound} [{smi}]", flush=True)
+
+
+def _events(fn) -> list:
+    """ms of REPEATS CUDA-event-timed calls of ``fn`` after a warm-up, L2
+    flushed; none when ``fn`` is None."""
+    return [] if fn is None else [t * 1e3 for t in profiling.device_samples(fn, REPEATS, "cuda")]
+
+
+def _shown(d, e) -> str:
+    return ("not measured (no device time in the trace)" if d is None
+            else f"{d:.4f} ms ({100 * (1 - d / e):.1f}% idle in the event window)")
+
+
+def cmd_times() -> list:
+    """Each kernel against its plain version on the same inputs, at 1x and
+    8x1080x1920 L4, lossless and medium, on smooth planes: the median and
+    range of ``2 * REPEATS`` CUDA-event-timed calls (L2 flushed; plain,
+    kernel, kernel, plain), the device time and the device kernels of one
+    call (``profiling.device_trace``), and the bound: the larger of the
+    bytes over PEAK_BYTES_PER_S and the operations over the issue ceiling
+    (SMS x DISPATCH_LANES_PER_SM x the SM clock's maximum) or the highest
+    SASS rate a K8 chain measured (``cmd_vpucal``), where that is higher.
+    Also X1's histogram stage against ``torch.bincount``, X1's chain bound
+    from the SASS of its lanes loop, and X1's device time from one plane
+    to 32.  Prints a row a line; the last line is one JSON object
+    ``{"kernels": [...]}``, a record a kernel at 1x1080x1920 L4 medium;
+    returns that list."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("times needs a CUDA card: torch.cuda.is_available() is false")
+    from ..ops import tpurans
+
+    smi, mhz = card(), max_sm_mhz()
+    _build.load()
+    print(f"device: {torch.cuda.get_device_name(0)} | K1-K8 and X1 against their plain "
+          f"versions on smooth planes at L4; {2 * REPEATS} CUDA-event-timed calls, L2 "
+          f"flushed; device time the mean of {REPEATS} calls under torch.profiler", flush=True)
+    rng = np.random.default_rng([SEED, 9])
+    cases = {}
+    for shape in TIMES_SHAPES:
+        img = torch.from_numpy(_plane(rng, shape)).to("cuda")
+        for preset in (QuantizationLevel.LOSSLESS, QuantizationLevel.MEDIUM):
+            cases["x".join(map(str, shape)), preset.name.lower()] = kernel_rows(
+                img, _table(preset))
+    # Every trace first: the plain versions launch many kernels (X1's a
+    # kernel per symbol row), after which the profiler's traces drop records.
+    traced = {(row, *case): profiling.device_trace(kern, REPEATS)
+              for case, calls in cases.items() for row, kern, *_ in calls}
+    chain = x1_chain(mhz)
+    if chain:
+        print(f"X1 lanes loop ({chain['function']}): {chain['loop_instructions']} SASS "
+              f"instructions for {X1_ROWS_A_LOOP} rows; dependent chain {chain['chain']} "
+              f"({chain['chain_per_row']:g} a row: {' '.join(chain['chain_opcodes'])}); at 4 "
+              f"cycles each and {mhz:.0f} MHz, {chain['ns_a_row']:.2f} ns a row [{smi}]",
+              flush=True)
+    else:
+        print("X1 lanes loop: cuobjdump not found, chain not measured", flush=True)
+    _x1_scaling(rng, smi, chain)
+
+    rates = cmd_vpucal()
+    ceiling = SMS * DISPATCH_LANES_PER_SM * mhz * 1e6
+    sass = {name: r["sass_ops_per_s"] for name, r in rates.items() if r.get("sass_ops_per_s")}
+    peak_ops = max(ceiling, *sass.values())
+    shown = ", ".join(f"{name} {v / 1e12:.3f}" for name, v in sass.items()) or "not measured"
+    print(f"ops bound: issue ceiling {SMS} SMs x {DISPATCH_LANES_PER_SM} lanes x {mhz:.0f} MHz = "
+          f"{ceiling / 1e12:.3f} T instr/s (the {INT32_LANES_PER_SM}-lane INT32 pipe alone "
+          f"{SMS * INT32_LANES_PER_SM * mhz * 1e6 / 1e12:.3f} T); K8 mix3x16 measured "
+          f"{rates['mix3x16']['ops_per_s'] / 1e12:.3f} T op/s at 3 op/round; K8 SASS rates "
+          f"(T instr/s): {shown}; the bounds use {peak_ops / 1e12:.3f} T op/s [{smi}]",
+          flush=True)
+
+    rows = {}
+    for (shape, preset), calls in cases.items():
+        for row, kern, plain, io_bytes, ops in calls:
+            # Plain, kernel, kernel, plain: compare within one call.
+            p1, k1 = _events(plain), _events(kern)
+            k2, p2 = _events(kern), _events(plain)
+            k = statistics.median(k1 + k2)
+            records = traced[row, shape, preset]
+            dev = _traced_ms(records)
+            out = rows[row, shape, preset] = {
+                "ms": k, "device_ms": dev,
+                "device_launches": profiling.kernel_launches(records)}
+            what = f"mix3 k={K8_ROUNDS}" if row == "K8" else f"L4 {preset}"
+            label = f"{row} {REPLACES[row][0]}" if row in REPLACES else row
+            text = (f"time {label} {shape} {what}: kernel median {k:.4f} ms "
+                    f"[{min(k1 + k2):.4f}..{max(k1 + k2):.4f}]")
+            if plain:
+                p = statistics.median(p1 + p2)
+                t_bytes, t_ops = io_bytes / PEAK_BYTES_PER_S, ops / peak_ops
+                out.update(plain_ms=p, bound_ms=max(t_bytes, t_ops) * 1e3,
+                           bound_by="bytes" if t_bytes >= t_ops else "operations")
+                text += (f", plain median {p:.4f} ms [{min(p1 + p2):.4f}..{max(p1 + p2):.4f}], "
+                         f"{2 * REPEATS} runs each, L2 flushed; bound {out['bound_ms']:.4f} ms "
+                         f"by {out['bound_by']} ({io_bytes} B, {ops} ops)")
+            else:
+                text += f", {2 * REPEATS} runs, L2 flushed"
+            print(f"{text} [{smi}]", flush=True)
+            # The event window includes the wrapper's host time whenever
+            # the card finishes first; the profiler's device time does not.
+            count = ("launches not measured" if out["device_launches"] is None
+                     else f"{out['device_launches']:g} device launch(es) a call")
+            print(f"device {row} {shape} {what}: kernel {_shown(dev, k)}, torch.profiler mean "
+                  f"of {REPEATS} calls; {count} [{smi}]", flush=True)
+        hist = _traced_ms(traced["X1", shape, preset], "rans_histogram")
+        rows["X1", shape, preset]["histogram_device_ms"] = hist
+        lib = rows["torch.bincount", shape, preset]
+        lib_ms, lib_dev = lib["ms"], lib["device_ms"]
+        print(f"histogram {shape} L4 {preset}: X1 rans_histogram device "
+              f"{'not measured' if hist is None else f'{hist:.4f} ms'}; torch.bincount event "
+              f"median {lib_ms:.4f} ms, device "
+              f"{'not measured' if lib_dev is None else f'{lib_dev:.4f} ms'} "
+              f"[{smi}]", flush=True)
+
+    kernels = []
+    _, h, w = TIMES_SHAPES[0]
+    shape = "x".join(map(str, TIMES_SHAPES[0]))
+    for kernel in KERNELS:
+        entry, replaces, src = REPLACES[kernel]
+        row = rows[kernel, shape, "medium"]
+        record = {"name": f"{kernel} {entry}", "route": "cuda", "source": src,
+                  "replaces": replaces, "library_ms": None,
+                  **{k: row[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                         "device_launches")}}
+        if kernel in ("K6", "K7"):
+            eight = rows[f"{kernel} 8-plane", shape, "medium"]
+            record["eight_plane"] = {"name": REPLACES[f"{kernel} 8-plane"][0],
+                                     **{k: eight[k] for k in ("ms", "device_ms", "plain_ms",
+                                                              "bound_ms", "device_launches")}}
+        if kernel == "X1":  # the histogram stage against torch.bincount; the chain bound
+            record["histogram_device_ms"] = row["histogram_device_ms"]
+            record["bincount_ms"] = rows["torch.bincount", shape, "medium"]["ms"]
+            t = -(-h * w // tpurans.lanes_for(h * w))
+            record["chain_bound_ms"] = t * chain["ns_a_row"] / 1e6 if chain else None
+        kernels.append(record)
+    print(json.dumps({"kernels": kernels}))
+    return kernels
 
 
 # -- validate ------------------------------------------------------------------
@@ -677,11 +992,14 @@ def main(argv=None) -> int:
                                  "lanes a block")
     sub.add_parser("validate", help="K1, K2, K3, K5, the plain version and the C++ stand-in "
                                     "against the oracle at the JAX probe's five cases")
+    sub.add_parser("times", help="K1-K8 and X1 against their plain versions and their bounds")
     args = parser.parse_args(argv)
     if args.command == "validate":
         return 0 if validate()["ok"] else 1
     if args.command == "sweep":
         cmd_sweep()
+    elif args.command == "times":
+        cmd_times()
     else:
         cmd_vpucal(args.names.split(",") if args.names else None)
     return 0

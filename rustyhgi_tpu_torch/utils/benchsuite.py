@@ -27,24 +27,25 @@ traversal cost from LUT-lookup cost.
 
 Device rows are timed on the card with CUDA events around each call,
 after a warm-up, with the L2 cache flushed before each (a 64 MiB write,
-above the H100's 50 MB): ``samples`` timed calls per bench (criterion
-uses 25, benches/bench.rs:154-157), the median reported and the (min,
-max) spread kept in :func:`run_suite_stats`.  The host rows use the host
+above the H100's 50 MB; :func:`.profiling.device_samples`): ``samples``
+timed calls per bench (criterion uses 25, benches/bench.rs:154-157), the
+median reported and the (min, max) spread kept in
+:func:`run_suite_stats`.  The host rows use the host
 clock.  ``device="cpu"`` runs everything on the CPU with the host clock
 (the plain PyTorch engine); ``"cuda"`` without a card raises.
 """
 
 from __future__ import annotations
 
-import time
-from typing import Callable, Dict
+from typing import Dict
 
 import numpy as np
 import torch
 
+from .profiling import device_samples, host_samples, require_device
+
 __all__ = [
-    "SUITE", "device_samples", "format_suite", "host_samples", "require_device", "run_suite",
-    "run_suite_stats", "synthetic",
+    "SUITE", "format_suite", "host_samples", "run_suite", "run_suite_stats", "synthetic",
 ]
 
 W, H, LEVELS = 1920, 1080, 4  # bench.rs:34-36
@@ -60,62 +61,12 @@ SUITE = (
     "compression",
 )
 
-_FLUSH_BYTES = 64 << 20  # above the H100's 50 MB L2
-
 
 def synthetic(w: int, h: int) -> np.ndarray:
     """The reference's criterion fixture, ``pixel = (x*y) as u8``, h x w."""
     x = np.arange(w, dtype=np.int64)
     y = np.arange(h, dtype=np.int64)
     return ((y[:, None] * x[None, :]) & 0xFF).astype(np.uint8)
-
-
-def host_samples(fn: Callable[[], object], iters: int) -> list:
-    """Seconds of ``iters`` calls of ``fn`` on the host clock."""
-    ts = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn()
-        ts.append(time.perf_counter() - t0)
-    return ts
-
-
-def require_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(dev)!r} requested but CUDA is not available; "
-            "pass device='cpu' to time the plain PyTorch version on the host"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {str(dev)!r}")
-    return dev
-
-
-def device_samples(fn: Callable[[], object], iters: int, device) -> list:
-    """Seconds of ``iters`` calls of ``fn`` after one warm-up call.
-
-    On a CUDA device each call is timed by CUDA events on the current
-    stream, with the L2 cache flushed before it; on the CPU by the host
-    clock.
-    """
-    dev = require_device(device)
-    fn()
-    if dev.type != "cuda":
-        return host_samples(fn, iters)
-    flush = torch.empty(_FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
-    return times
 
 
 def _stat(times, npix) -> Dict[str, float]:

@@ -60,6 +60,7 @@ import numpy as np
 from ..dyadic import cdiv, effective_levels, subband_shapes
 from ..ops import bitpack, ctxcoder, native, tpurans
 from ..ops.entropy import rans_decode, rans_encode
+from ..ops.predictors import Interpolation
 from ..ops.quantizers import QuantizationLevel
 from .profiling import carry, span
 
@@ -101,14 +102,6 @@ THGI_MAGIC = 0x7B61_A555  # native container of the JAX package
 MAX_PLANE_PIXELS = 1 << 30
 
 _METADATA = struct.Struct("<IIIIQ")  # qlevel, interp, width, height, scale
-
-
-class Interpolation:
-    """Interpolator tags, serde enum order (interpolator.rs:4-9)."""
-
-    CROSSED = 0
-    LINE = 1  # metadata-only in the reference (no implementation)
-    PREVIOUS = 2
 
 
 @dataclasses.dataclass(frozen=True)

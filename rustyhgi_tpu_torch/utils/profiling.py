@@ -14,6 +14,11 @@ Counterpart of ``rustyhgi_tpu/utils/profiling.py``:
   :func:`self_ns` gives each span's self time;
 * :func:`device_averages` reads a trace's kernels, copies and memsets
   on the card, without the spans' marks there;
+* :func:`device_samples` times calls with CUDA events, the L2 cache
+  flushed before each (the host clock on the CPU), and
+  :func:`device_trace` reads one call's device time by record name, and
+  the records it makes, from ``torch.profiler``; :func:`kernel_launches`
+  counts the kernels among them;
 * :class:`StageTimer` accumulates named stage times and derives rates,
   with the JAX class's API, report and printout; :func:`stage_clock`
   times named functions of other modules while a block runs;
@@ -26,21 +31,25 @@ import collections
 import contextlib
 import itertools
 import os
+import sys
 import threading
 import time
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 __all__ = [
-    "trace", "device_averages", "span", "carry", "enable_spans", "disable_spans", "spans",
+    "trace", "device_averages", "device_samples", "device_trace", "kernel_launches", "DeviceTime",
+    "host_samples", "require_device", "span", "carry", "enable_spans", "disable_spans", "spans",
     "self_ns", "Span",
     "StageTimer", "stage_clock", "codec_metrics", "psnr",
 ]
 
 SPAN_CAPACITY = 65536  # spans the ring keeps by default; a scene makes about 1.1k
+_FLUSH_BYTES = 64 << 20  # above the H100's 50 MB L2
+TRACE_ATTEMPTS = 6  # takes of a trace that dropped records
 
 # The recorder's state.  ``_active`` is the one flag :func:`span` reads: a
 # ring is kept or a trace() block runs.
@@ -275,6 +284,101 @@ def device_averages(prof) -> list:
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
             and not getattr(e, "is_user_annotation", False) and not e.key.startswith("hgi.")]
+
+
+def host_samples(fn: Callable[[], object], iters: int) -> list:
+    """Seconds of ``iters`` calls of ``fn`` on the host clock."""
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return ts
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but CUDA is not available; "
+            "pass device='cpu' to time the plain PyTorch version on the host"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {str(dev)!r}")
+    return dev
+
+
+def device_samples(fn: Callable[[], object], iters: int, device) -> list:
+    """Seconds of ``iters`` calls of ``fn`` after one warm-up call.
+
+    On a CUDA device each call is timed by CUDA events on the current
+    stream, with the L2 cache flushed before it; on the CPU by the host
+    clock.
+    """
+    dev = require_device(device)
+    fn()
+    if dev.type != "cuda":
+        return host_samples(fn, iters)
+    flush = torch.empty(_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    return times
+
+
+class DeviceTime(NamedTuple):
+    """One record name's share of a call in :func:`device_trace`."""
+
+    seconds: float  # device seconds a call
+    count: int  # records a call: the launches, for a kernel
+
+
+def device_trace(fn: Callable[[], object], repeats: int = 7) -> Dict[str, DeviceTime]:
+    """One call of ``fn`` on the card by record name (kernel, copy or
+    memset): ``repeats`` calls after a warm-up under :func:`trace`, summed
+    by :func:`device_averages` and divided by ``repeats``.  Empty without
+    a card, or when every take dropped records.
+
+    ``torch.profiler`` drops device records late in a process, once a
+    trace has held tens of thousands of them, and at random early, a whole
+    trace empty at times.  Every call launches the same work, so a trace
+    in which some name's count is no multiple of ``repeats`` dropped
+    records: it is taken again, ``TRACE_ATTEMPTS`` times at most.  (A drop
+    that leaves every count a multiple passes.)
+    """
+    if not torch.cuda.is_available():
+        return {}
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(TRACE_ATTEMPTS):
+        with trace(None, "cuda") as prof:
+            for _ in range(repeats):
+                fn()
+        events = device_averages(prof)
+        counts = {e.key: e.count for e in events}
+        if counts and all(c % repeats == 0 for c in counts.values()):
+            return {e.key: DeviceTime(e.self_device_time_total / repeats / 1e6,
+                                      e.count // repeats) for e in events}
+        print(f"WARNING: the trace dropped device records (counts {counts}, {repeats} calls); "
+              f"take {attempt + 1}/{TRACE_ATTEMPTS}", file=sys.stderr, flush=True)
+    return {}
+
+
+def kernel_launches(records: Dict[str, DeviceTime]) -> Optional[int]:
+    """The device kernels one call launches, from :func:`device_trace`'s
+    records, copies and memsets not counted; None when there are none."""
+    if not records:
+        return None
+    return sum(r.count for name, r in records.items()
+               if "Memcpy" not in name and "Memset" not in name)
 
 
 class StageTimer:

@@ -103,7 +103,7 @@ def test_cuda_seconds_per_call_remeasures_below_the_floor_and_never_clamps(monke
         seen.append(iters)
         return [1e-9] * iters
 
-    monkeypatch.setattr(bench.benchsuite, "device_samples", samples)
+    monkeypatch.setattr(bench.profiling, "device_samples", samples)
     with pytest.raises(RuntimeError, match="below the bytes floor"):
         bench.cuda_seconds_per_call(lambda: None, "cpu", floor_bytes=10**9)
     assert seen == [bench.REPEATS] * bench.RETRIES

@@ -1,8 +1,8 @@
 """The port's chip probe on the CPU: its SASS reader and its refusals.
 
-The probe's rates need the card (``chip_smoke.py`` runs it there); what
-runs here is the reading of ``cuobjdump -sass`` output, on listings
-written in its format, and the argument handling.
+The probe's rates and times need the card; what runs here is the
+reading of ``cuobjdump -sass`` output, on listings written in its
+format, and the argument handling.
 """
 
 import pytest
@@ -84,12 +84,6 @@ def test_sass_loops_of_a_listing_without_the_kernels_is_empty():
                                            lambda top: f"BRA 0x{top:x}")) == {}
 
 
-def test_vpucal_without_a_card_raises(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="needs a CUDA card"):
-        chip_probe.main(["vpucal"])
-
-
 def test_vpucal_rejects_unknown_rows(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="unknown vpucal rows"):
@@ -158,12 +152,6 @@ def test_ptxas_summary_reads_the_named_kernels():
                                         "registers": 40, "smem": 2048}}
 
 
-def test_sweep_without_a_card_raises(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="needs a CUDA card"):
-        chip_probe.main(["sweep"])
-
-
 def test_sweep_choices_fit_the_kernels():
     for th, tw in chip_probe.SWEEP_TILES:
         assert th % 16 == 0 and tw % 16 == 0
@@ -183,14 +171,6 @@ def test_sweep_times_every_decode_tile_and_a_preview():
     assert set(cuda_codec.DECODE_TILES) <= set(chip_probe.SWEEP_DECODE_TILES)
     assert all(0 < upto < chip_probe.SWEEP_LEVELS[0] for upto in chip_probe.SWEEP_PREVIEWS)
     assert 2 in chip_probe.SWEEP_PREVIEWS  # the CLI's and the smoke's preview
-
-
-def test_decode_times_without_a_card_raises(monkeypatch):
-    from rustyhgi_tpu_torch.tools import decode_times
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="needs a CUDA card"):
-        decode_times.main([])
 
 
 def test_sweep_compares_whole_subband_layouts():
@@ -237,8 +217,8 @@ def test_validate_cases_are_the_jax_probes():
     assert len(ours) == 5
 
 
-@pytest.mark.parametrize("argv", [["validate"], None])
-def test_validate_without_a_card_raises(monkeypatch, argv):
+@pytest.mark.parametrize("argv", [["vpucal"], ["sweep"], ["validate"], ["times"], None])
+def test_subcommand_without_a_card_raises(monkeypatch, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA card"):
         if argv is None:

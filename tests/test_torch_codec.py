@@ -186,6 +186,20 @@ def test_build_raises_with_the_compiler_output(monkeypatch, tmp_path):
     assert not list(tmp_path.glob("*.so"))
 
 
+def test_raise_on_names_the_entry_and_the_cuda_error(monkeypatch):
+    class Lib:
+        @staticmethod
+        def hgi_error_string(rc):
+            return {700: b"an illegal memory access was encountered"}[rc]
+
+    monkeypatch.setattr(_build, "_lib", Lib())
+    assert _build.raise_on(0, "hgi_encode") is None
+    with pytest.raises(RuntimeError) as err:
+        _build.raise_on(700, "rans_tpu_encode")
+    assert str(err.value) == (
+        "rans_tpu_encode failed: CUDA error 700 (an illegal memory access was encountered)")
+
+
 def test_build_here_raises_when_no_nvcc_is_installed(monkeypatch):
     if _build.find_nvcc() is not None:
         pytest.skip("an nvcc is installed here; the build would succeed")

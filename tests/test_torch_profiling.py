@@ -286,3 +286,14 @@ def test_off_records_nothing_and_returns_one_shared_context():
     assert s.nbytes is None and profiling.spans() == []
     assert not hasattr(s, "__dict__")
 
+
+
+def test_device_timers_on_the_cpu(monkeypatch):
+    calls = []
+    samples = profiling.device_samples(lambda: calls.append(1), 3, "cpu")
+    assert len(calls) == 4  # one warm-up call, then the timed ones
+    assert len(samples) == 3 and all(t >= 0 for t in samples)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert profiling.device_trace(lambda: calls.append(1)) == {}
+    assert len(calls) == 4
+    assert profiling.kernel_launches({}) is None
