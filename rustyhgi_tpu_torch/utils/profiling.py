@@ -10,7 +10,8 @@ Counterpart of ``rustyhgi_tpu/utils/profiling.py``:
   copies, launches, fetches and framing, the ``.thgi`` race and its
   coders); :func:`enable_spans` keeps the spans in a bounded ring that
   :func:`spans` reads, with the bytes each moved, :func:`carry` runs a
-  job handed to a thread pool under the span that handed it over, and
+  job handed to a thread pool under the span that handed it over, its
+  wait for a thread recorded, and
   :func:`self_ns` gives each span's self time;
 * :func:`device_averages` reads a trace's kernels, copies and memsets
   on the card, without the spans' marks there;
@@ -73,10 +74,16 @@ class Span:
     below that, whether it ran on another thread than its request's
     outermost span (``thread``: a job :func:`carry` handed to a pool), and
     the bytes it moved (``nbytes``, None when it counts none; the code may
-    set it inside the block)."""
+    set it inside the block).
+
+    ``queued_ns`` is, for a span opened directly on a carried job's base,
+    the time from :func:`carry` to the span's start, which is how long the
+    job waited for a thread where the caller submits it straight after
+    ``carry`` (``write_thgi`` does, to within microseconds); None for
+    every other span."""
 
     __slots__ = ("id", "name", "parent", "request", "depth", "thread", "start_ns", "end_ns",
-                 "nbytes", "_range")
+                 "queued_ns", "nbytes", "_range")
 
     def __init__(self, name: str, nbytes: Optional[int] = None):
         self.name, self.nbytes = name, nbytes
@@ -87,10 +94,13 @@ class Span:
         if stack is None:
             stack = _open.stack = []
         self.id = next(_ids)
+        carried = None
         if stack:
             top = stack[-1]
             self.parent, self.request = top.id, top.request
             self.depth, self.thread = top.depth + 1, top.thread
+            if type(top) is _Carried:
+                carried = top
         else:
             self.parent, self.request, self.depth, self.thread = None, self.id, 0, False
         stack.append(self)
@@ -98,6 +108,7 @@ class Span:
             self._range = torch.profiler.record_function(f"hgi.{self.name}")
             self._range.__enter__()
         self.start_ns = time.perf_counter_ns()
+        self.queued_ns = None if carried is None else self.start_ns - carried.submitted_ns
         return self
 
     def __exit__(self, *exc) -> bool:
@@ -149,19 +160,22 @@ def span(name: str, nbytes: Optional[int] = None):
 
 class _Carried:
     """The submitter's open span as a pool thread's base: what a span
-    opened on that thread takes from its parent."""
+    opened on that thread takes from its parent, and when the job was
+    handed over (``submitted_ns``, on ``time.perf_counter_ns()``)."""
 
-    __slots__ = ("id", "request", "depth", "thread")
+    __slots__ = ("id", "request", "depth", "thread", "submitted_ns")
 
     def __init__(self, top: Span):
         self.id, self.request, self.depth, self.thread = top.id, top.request, top.depth, True
+        self.submitted_ns = time.perf_counter_ns()
 
 
 def carry(fn):
     """``fn`` to hand to a thread pool: run there, its spans have the span
     open here as their parent, this command's request, and ``thread``
-    True.  While no span records, or outside any span, it is ``fn``
-    itself, so the submit costs one flag check."""
+    True, and those opened directly on it their wait since this call
+    (``Span.queued_ns``).  While no span records, or outside any span, it
+    is ``fn`` itself, so the submit costs one flag check."""
     if not _active:
         return fn
     stack = getattr(_open, "stack", None)

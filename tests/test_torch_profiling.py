@@ -210,25 +210,33 @@ def test_a_job_on_a_pool_runs_its_spans_under_the_submitter(recorder):
     def job(k):
         with profiling.span("coder.rans", k) as inner:
             with profiling.span("coder.inner"):
-                pass
+                time.sleep(0.05 if k == 0 else 0)
         return inner
 
-    with ThreadPoolExecutor(2) as pool:
+    # One thread, so the second job waits for the first to end; carried
+    # once, as write_thgi does, so every job's wait counts from one stamp.
+    with ThreadPoolExecutor(1) as pool:
         with profiling.span("cli.encode_tiled") as root:
             with profiling.span("tiles.race") as race:
-                jobs = [pool.submit(profiling.carry(job), k) for k in range(4)]
+                carried = profiling.carry(job)
+                jobs = [pool.submit(carried, k) for k in range(4)]
                 spans = [f.result() for f in jobs]
             with profiling.span("tiles.frame") as after:
                 pass
         outside = pool.submit(profiling.carry(job), 9).result()
     for k, s in enumerate(spans):
         assert (s.parent, s.request, s.depth, s.thread, s.nbytes) == (race.id, root.id, 2, True, k)
+        assert 0 <= s.queued_ns <= s.start_ns - race.start_ns
+    ran = spans[0].end_ns - spans[0].start_ns
+    assert spans[1].queued_ns >= ran >= 50_000_000 and spans[0].queued_ns < ran // 2
     inner = [s for s in profiling.spans() if s.name == "coder.inner"]
     assert len(inner) == 5 and {s.parent for s in inner[:4]} == {s.id for s in spans}
     assert all(s.thread and s.depth == 3 and s.request == root.id for s in inner[:4])
     assert not (root.thread or race.thread or after.thread) and after.parent == root.id
     # Submitted outside any span, a job's spans are its own requests.
     assert (outside.parent, outside.request, outside.thread) == (None, outside.id, False)
+    # Only a span opened on a carried job's base waited in the queue.
+    assert all(s.queued_ns is None for s in inner + [root, race, after, outside])
 
 
 def test_a_carried_job_leaves_the_pool_thread_as_it_found_it(recorder):
@@ -277,10 +285,14 @@ def test_off_the_submit_path_hands_over_the_job_itself_and_allocates_nothing():
     assert sum(d.size_diff for d in grown) == 0
 
 
-def test_off_records_nothing_and_returns_one_shared_context():
+def test_off_records_nothing_and_returns_one_shared_context(monkeypatch):
+    def no_clock():
+        raise AssertionError("a span read the clock while nothing records")
+
+    monkeypatch.setattr(time, "perf_counter_ns", no_clock)
     assert profiling.spans() == []
     a, b = profiling.span("codec.h2d", 5), profiling.span("tiles.write")
-    assert a is b
+    assert a is b is profiling._NO_SPAN
     with a as s:
         s.nbytes = 123  # dropped
     assert s.nbytes is None and profiling.spans() == []
