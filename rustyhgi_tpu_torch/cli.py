@@ -193,30 +193,40 @@ def _host_archive(image: np.ndarray, quant, args) -> Archive:
 
 
 def cmd_encode(args) -> int:
+    """One image to one archive.  The command is the span ``cli.encode``,
+    the root of its stages' spans: ``cli.load`` (the image read),
+    :func:`encode_color`'s or the codec's, and ``cli.write`` (the output's
+    write; its bytes)."""
+    with span("cli.encode"):
+        blob = _encode(args)
+        with span("cli.write", len(blob)):
+            with open(args.output, "wb") as f:
+                f.write(blob)
+    return 0
+
+
+def _encode(args) -> bytes:
     quant = QuantizationLevel.parse(args.quantizator)
     if args.color:
         # Through the codec whatever --backend says, as in the JAX CLI.
         from .utils.color import encode_color, load_rgb
 
-        blob = encode_color(_codec(args, quant), load_rgb(args.input), fmt=args.format)
-        with open(args.output, "wb") as f:
-            f.write(blob)
-        return 0
-    image = load_luma(args.input)
+        codec = _codec(args, quant)
+        with span("cli.load"):
+            rgb = load_rgb(args.input)
+        return encode_color(codec, rgb, fmt=args.format)
+    with span("cli.load"):
+        image = load_luma(args.input)
     fast = args.format == "thgi" and args.fast
     if args.backend != "torch":
         # The JAX CLI's _serialize: --fast codes the host grid with the
         # device rANS's plain version.
         archive = _host_archive(image, quant, args)
-        blob = write_thgi(archive, fast=True, device="cpu") if fast else \
+        return write_thgi(archive, fast=True, device="cpu") if fast else \
             write_archive(archive, args.format)
-    elif fast:
-        blob = _codec(args, quant).write_fast(image)
-    else:
-        blob = write_archive(_codec(args, quant).encode(image), args.format)
-    with open(args.output, "wb") as f:
-        f.write(blob)
-    return 0
+    if fast:
+        return _codec(args, quant).write_fast(image)
+    return write_archive(_codec(args, quant).encode(image), args.format)
 
 
 def cmd_decode(args) -> int:

@@ -20,11 +20,21 @@ Container layout (``.thgic``)::
 The three planes go to the codec as one ``[3, H, W]`` batch: one K1 call
 a transform, one K2 call for the full decode, K5 a plane for a preview.
 Each plane decodes with the predictor its archive's tag names.
+
+The encode's stages are spans (:func:`..utils.profiling.span`, off by
+default): ``color.encode`` a transform, holding ``color.forward`` (the
+transform on the device; the planes' bytes), ``color.grids`` (K1 and the
+grids' copy to the host; the bytes fetched) and ``color.plane`` a plane
+(``write_archive``, under which the ``.thgi`` race's spans nest; the
+blob's bytes).  :data:`TRANSFORM_WINS` counts the transform each lossless
+encode keeps.
 """
 
 from __future__ import annotations
 
+import collections
 import struct
+import threading
 
 import numpy as np
 import torch
@@ -33,9 +43,11 @@ from ..models.codec import HGICodec
 from ..ops.predictors import predictor_name_for_tag
 from ..ops.quantizers import linear_error
 from .container import Archive, read_archive, read_preview, write_archive
+from .profiling import span
 
 __all__ = [
     "THGIC_MAGIC",
+    "TRANSFORM_WINS",
     "encode_color",
     "decode_color",
     "decode_color_preview",
@@ -49,6 +61,11 @@ _T_IDENTITY = 0
 _T_GDELTA = 1
 
 _HEAD = struct.Struct("<IBB")  # magic, n_planes, transform
+
+# Lossless encodes by the transform kept, "gdelta" or "identity": one count
+# for each encode_color call that races them.  Clear it to start afresh.
+TRANSFORM_WINS: collections.Counter = collections.Counter()
+_WINS_LOCK = threading.Lock()
 
 
 def load_rgb(path: str) -> np.ndarray:
@@ -85,14 +102,21 @@ def _inverse(planes: torch.Tensor, transform: int) -> torch.Tensor:
 def _encode_one(codec, planes: torch.Tensor, transform: int, fmt: str) -> bytes:
     """One transform's ``.thgic``: one K1 call on the three planes, one
     copy of the grids to the host, then a host archive a plane."""
-    grids = codec.encode_plane(_forward(planes, transform))[0].cpu().numpy()
-    h, w = grids.shape[1:]
-    parts = [_HEAD.pack(THGIC_MAGIC, 3, transform)]
-    for grid in grids:
-        blob = write_archive(Archive(codec.metadata_for(h, w), grid), fmt)
-        parts.append(struct.pack("<Q", len(blob)))
-        parts.append(blob)
-    return b"".join(parts)
+    with span("color.encode"):
+        with span("color.forward", planes.numel()):
+            stored = _forward(planes, transform)
+        with span("color.grids") as sp:
+            grids = codec.encode_plane(stored)[0].cpu().numpy()
+            sp.nbytes = grids.nbytes
+        h, w = grids.shape[1:]
+        parts = [_HEAD.pack(THGIC_MAGIC, 3, transform)]
+        for grid in grids:
+            with span("color.plane") as sp:
+                blob = write_archive(Archive(codec.metadata_for(h, w), grid), fmt)
+                sp.nbytes = len(blob)
+            parts.append(struct.pack("<Q", len(blob)))
+            parts.append(blob)
+        return b"".join(parts)
 
 
 def encode_color(codec, rgb: np.ndarray, fmt: str = "thgi") -> bytes:
@@ -101,7 +125,8 @@ def encode_color(codec, rgb: np.ndarray, fmt: str = "thgi") -> bytes:
     ``codec`` is an :class:`HGICodec`; the image goes to its
     device once.  Lossless presets race green-delta against identity and
     keep the smaller (green-delta on a tie); lossy presets store raw
-    channels.
+    channels.  A lossless encode counts the transform it keeps in
+    :data:`TRANSFORM_WINS`.
     """
     rgb = np.asarray(rgb, dtype=np.uint8)
     if rgb.ndim != 3 or rgb.shape[2] != 3:
@@ -109,10 +134,12 @@ def encode_color(codec, rgb: np.ndarray, fmt: str = "thgi") -> bytes:
     planes = torch.from_numpy(np.ascontiguousarray(np.moveaxis(rgb, 2, 0))).to(codec.device)
     if linear_error(codec.quantization) != 0:
         return _encode_one(codec, planes, _T_IDENTITY, fmt)
-    return min(
-        (_encode_one(codec, planes, _T_GDELTA, fmt), _encode_one(codec, planes, _T_IDENTITY, fmt)),
-        key=len,
-    )
+    gdelta = _encode_one(codec, planes, _T_GDELTA, fmt)
+    identity = _encode_one(codec, planes, _T_IDENTITY, fmt)
+    kept = "identity" if len(identity) < len(gdelta) else "gdelta"
+    with _WINS_LOCK:
+        TRANSFORM_WINS[kept] += 1
+    return identity if kept == "identity" else gdelta
 
 
 def _split_thgic(data: bytes):
